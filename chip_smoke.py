@@ -5,21 +5,38 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: name, count, `nvidia-smi` name and power limit;
-  2. build: `make -C native`, then both CUDA kernels from csrc/ (nvcc for
-     sm_90a; ptxas registers / shared memory / spills printed);
+  2. build: `make -C native` and the three CUDA sources of csrc/
+     (membership.cu: K1 + K3, mixed.cu: K2, fused.cu: K4), all at once
+     (nvcc for sm_90a; ptxas registers / shared memory / spills printed);
   3. corpus: the seeded benchmark corpus (corpus.py) written to
      build/smoke_corpus, its snapshot, and the device index;
-  4. kernels vs their plain versions on the card at the main path's shapes
-     (K1 at B=128 with Q=4 and Q=32, both count variants, the hot split and
-     the doc-sorted bound; K2 at B=128, Q=4, P=16 with int16 planes), with
-     CUDA-event times of both;
+  4. kernels vs their plain versions on the card at the main path's shapes,
+     with CUDA-event times of both: K1 at B=128 with Q=4 and Q=32, both
+     count variants, the hot split and the doc-sorted bound; K2 at B=128,
+     Q=4, P=16 with int16 planes; K3 (one section) at B=128, Q=4 and Q=32,
+     both count variants, qn-sorted rows; K4 (fused) at B=128, Q=4 and
+     Q=32, topics off (C=1) and a seeded C=8 blend; score_queries_fused vs
+     the production keyword scorer per B=128 batch;
   5. serving: the port's SearchServer (micro-batching on) after warmup()
      answers POST /query, GET /query/{terms} and GET /wordlist/{prefix}
      from several client threads; every response must be 200 JSON, the
      ranked results must equal the plain-version path on the card (ties at
-     equal scores aside), and both kernels' launch counts must be > 0.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
+     equal scores aside), and K1 and K2 must have launched;
+  6. fused ranking: score_queries_fused (K4) on a B=128 keyword batch, ids
+     mapped through doc_perm, equals BlendedRanker.score_keywords top-50;
+  7. a custom-blend engine (title only): the query mix through
+     query_batch; keyword batches take K3, phrase batches the sparse lane;
+     results equal the plain path;
+  8. --ranker bm25 serving: a SearchServer over a BM25 engine answers the
+     query mix from several clients, every response 200 and equal to the
+     plain path; K1 launched and the sparse-lane matcher ran;
+  9. the exact CSR route: an index truncated by a lowered DOC_TERM_CAP
+     answers keyword and phrase queries through score_csr, equal to the
+     untruncated dense plain path.
+Every phase that ranks resets the launch counts before it and reads them
+after. The line before the last is the kernels' JSON record; the last line
+is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -36,11 +53,16 @@ import threading
 import time
 import urllib.parse
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PAGES = 100_000  # the benchmark corpus's size (bench.py build_bench_corpus)
-QUERIES = 320  # POST /query requests of the serving phase
+QUERIES = 320  # POST /query requests of each serving phase
 CLIENTS = 8  # concurrent HTTP client threads
+#: the CSR route sums a doc's postings in scatter order, the dense path in
+#: slot order: the JAX package's own bar between the two formulations
+#: (tests/test_scoring_paths.py) is rel 1e-5, abs 1e-7 on scores
+CSR_RTOL = 1e-5
 
 
 def say(msg: str) -> None:
@@ -50,10 +72,11 @@ def say(msg: str) -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the scorers through the kernels' plain versions (the on-card
-    reference for the serving phase)."""
-    from spaghettisearch_tpu_torch.ops.kernels import membership, mixed
+    reference of the ranking phases)."""
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
 
-    saved = membership.forward_scores_2sec, mixed.mixed_scores_2sec
+    saved = (membership.forward_scores_2sec, membership.forward_scores,
+             mixed.mixed_scores_2sec, fused.fused_final_scores)
 
     def k2_plain(t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, qn, ph_ids,
                  ph_valid, pn, *, emit_counts=True, qnb=None):
@@ -62,22 +85,65 @@ def plain_kernels():
         )
         return out if emit_counts else (out[0], None, out[2], None)
 
+    def k3_plain(ftT, fwT, term_ids, qn=None, *, emit_counts=True):
+        s, c = membership.plain_section_scores(ftT, fwT, term_ids)
+        return s, (c if emit_counts else None)
+
     membership.forward_scores_2sec = membership.plain_forward_scores_2sec
+    membership.forward_scores = k3_plain
     mixed.mixed_scores_2sec = k2_plain
+    fused.fused_final_scores = fused.plain_fused_final_scores
     try:
         yield
     finally:
-        membership.forward_scores_2sec, mixed.mixed_scores_2sec = saved
+        (membership.forward_scores_2sec, membership.forward_scores,
+         mixed.mixed_scores_2sec, fused.fused_final_scores) = saved
 
 
-def same_results(got: list[dict], want: list[dict]) -> bool:
+@contextlib.contextmanager
+def count_matcher_calls():
+    """Count the sparse phrase lane's matcher calls (the engine's forward
+    and CSR matchers) inside the block: yields a one-element list."""
+    from spaghettisearch_tpu_torch.retrieval import engine as eng_mod
+
+    calls = [0]
+    saved = eng_mod.match_phrase_fwd_batch, eng_mod.match_phrase_batch
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    eng_mod.match_phrase_fwd_batch, eng_mod.match_phrase_batch = map(counted, saved)
+    try:
+        yield calls
+    finally:
+        eng_mod.match_phrase_fwd_batch, eng_mod.match_phrase_batch = saved
+
+
+def reset_launches() -> None:
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+
+    for mod in (membership, mixed, fused):
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+
+    return {"membership": membership.LAUNCHES, "mixed": mixed.LAUNCHES,
+            "membership_1sec": membership.LAUNCHES_1SEC, "fused": fused.LAUNCHES}
+
+
+def same_results(got: list[dict], want: list[dict], rtol: float = 1e-6) -> bool:
     """Equal ranked lists up to ties: every position's FinalRank within
-    1e-6 relative of the reference's, and where the Urls differ the scores
+    rtol relative of the reference's, and where the Urls differ the scores
     tie (bench.py --mode parity's rule, extended to the k-th cut)."""
     if len(got) != len(want):
         return False
     ref = {r["Url"]: r["FinalRank"] for r in want}
-    tol = lambda a, b: abs(a - b) <= 1e-6 * max(abs(b), 1e-9)  # noqa: E731
+    tol = lambda a, b: abs(a - b) <= rtol * max(abs(b), 1e-9)  # noqa: E731
     for g, w in zip(got, want):
         if not tol(g["FinalRank"], w["FinalRank"]):
             return False
@@ -89,6 +155,125 @@ def same_results(got: list[dict], want: list[dict]) -> bool:
             if g["Url"] == w["Url"] and g[key] != w[key]:
                 return False
     return True
+
+
+def same_topk(got_s, got_i, want_s, want_i, rtol: float, atol: float) -> bool:
+    """Equal [B, K] top-k rows up to ties: scores position by position
+    within rtol/atol (-inf where the reference has -inf), and where the ids
+    differ the got id's reference score ties the reference's score there
+    (the k-th score for an id the reference did not rank)."""
+    import numpy as np
+
+    got_s, got_i, want_s, want_i = (np.asarray(x.cpu()) for x in (got_s, got_i, want_s, want_i))
+    if got_s.shape != want_s.shape:
+        return False
+    for gs, gi, ws, wi in zip(got_s, got_i, want_s, want_i):
+        fin = np.isfinite(ws)
+        if not np.array_equal(np.isfinite(gs), fin):
+            return False
+        if not np.allclose(gs[fin], ws[fin], rtol=rtol, atol=atol):
+            return False
+        ref = dict(zip(wi[fin].tolist(), ws[fin].tolist()))
+        last = ws[fin][-1] if fin.any() else 0.0
+        for g, w, s in zip(gi[fin], wi[fin], ws[fin]):
+            if g != w and abs(ref.get(int(g), last) - s) > atol + rtol * abs(s):
+                return False
+    return True
+
+
+def check_ranked(queries: list[str], got: list[list[dict]], want: list[list[dict]],
+                 what: str, rtol: float = 1e-6) -> int:
+    """Every ranked list well-formed and equal to the reference's. -> the
+    number of results."""
+    n_hits = 0
+    for q, g, w in zip(queries, got, want):
+        n_hits += len(g)
+        ranks = [r["FinalRank"] for r in g]
+        if ranks != sorted(ranks, reverse=True) or not all(
+            isinstance(x, float) and x == x and abs(x) != float("inf") for x in ranks
+        ):
+            raise RuntimeError(f"{what}: bad FinalRank order/values for {q!r}")
+        if not same_results(g, w, rtol):
+            raise RuntimeError(f"{what}: results differ from the plain path for {q!r}")
+    return n_hits
+
+
+def http_burst(engine, jobs: list[tuple[str, str]], clients: int) -> tuple[dict, float]:
+    """Serve `engine` through the port's SearchServer (micro-batching on)
+    and send `jobs` ((kind, arg): post / get / wordlist) from `clients`
+    threads. -> ({(kind, arg): (status, body, seconds)}, wall seconds)."""
+    from spaghettisearch_tpu_torch.serve.server import SearchServer
+
+    server = SearchServer(engine, batching=True)
+    host, port = server.start_background(port=0)
+    base = f"http://{host}:{port}"
+    results: dict[tuple[str, str], tuple[int, object, float]] = {}
+    lock = threading.Lock()
+    errors: list[BaseException] = []
+
+    def fetch(kind: str, arg: str) -> None:
+        t = time.perf_counter()
+        if kind == "post":
+            req = urllib.request.Request(
+                base + "/query", data=json.dumps({"query": arg}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST",
+            )
+        elif kind == "get":
+            req = base + "/query/" + urllib.parse.quote(arg)
+        else:
+            req = base + "/wordlist/" + urllib.parse.quote(arg)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, body = r.status, json.loads(r.read())
+        with lock:
+            results[(kind, arg)] = (status, body, time.perf_counter() - t)
+
+    def client(part: list[tuple[str, str]]) -> None:
+        try:
+            for job in part:
+                fetch(*job)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(jobs[i::clients],)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    server.shutdown()
+    if errors:
+        raise errors[0]
+    if not all(v[0] == 200 for v in results.values()):
+        raise RuntimeError("a request did not answer 200")
+    return results, wall
+
+
+def latency_line(results: dict, n: int, wall: float) -> str:
+    lat = sorted(v[2] for k, v in results.items() if k[0] == "post")
+    return (f"{n} POST /query from {CLIENTS} clients in {wall:.3f}s = {n / wall:.1f} req/s; "
+            f"latency p50 {1e3 * lat[len(lat) // 2]:.2f} ms, "
+            f"p99 {1e3 * lat[int(len(lat) * 0.99)]:.2f} ms")
+
+
+def build_all() -> list:
+    """`make -C native` and one nvcc per CUDA source, all started together."""
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        native = ex.submit(subprocess.run, ["make", "-C", os.path.join(HERE, "native"), "-s"],
+                           check=True)
+        libs = [ex.submit(mod.library) for mod in (membership, mixed, fused)]
+        native.result()
+        built = [f.result() for f in libs]
+    say(f"# native libraries and kernels built in {time.perf_counter() - t0:.1f}s")
+    for lib in built:
+        say(f"# kernel {os.path.relpath(lib.path, HERE)} built in {lib.seconds:.1f}s (sm_90a):")
+        for line in lib.log.splitlines():
+            if re.search(r"Compiling entry|registers|spill|smem|Function properties", line):
+                say("#   " + line.strip())
+    return built
 
 
 def main() -> int:
@@ -104,11 +289,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
     from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
+    from spaghettisearch_tpu_torch.models.blended import BlendedRanker
+    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+    from spaghettisearch_tpu_torch.ops import scoring
     from spaghettisearch_tpu_torch.ops.kernels import check
-    from spaghettisearch_tpu_torch.ops.kernels import membership as k1
-    from spaghettisearch_tpu_torch.ops.kernels import mixed as k2
-    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
-    from spaghettisearch_tpu_torch.serve.server import SearchServer
+    from spaghettisearch_tpu_torch.retrieval import device_index
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
 
     t_start = time.perf_counter()
     # 1. the card
@@ -122,15 +308,7 @@ def main() -> int:
     say(smi)
 
     # 2. build
-    t0 = time.perf_counter()
-    subprocess.run(["make", "-C", os.path.join(HERE, "native"), "-s"], check=True)
-    say(f"# native libraries built in {time.perf_counter() - t0:.1f}s")
-    for mod in (k1, k2):
-        built = mod.library()
-        say(f"# kernel {os.path.relpath(built.path, HERE)} built in {built.seconds:.1f}s (sm_90a):")
-        for line in built.log.splitlines():
-            if re.search(r"Compiling entry|registers|spill|smem|Function properties", line):
-                say("#   " + line.strip())
+    build_all()
 
     # 3. corpus + index
     t0 = time.perf_counter()
@@ -155,36 +333,58 @@ def main() -> int:
         f"doc_sort {idx.doc_perm is not None}, hot terms "
         f"{0 if idx.hot_body_map is None else len(idx.hot_body_map)}, posT C "
         f"{idx.title.pos_c}/{idx.body.pos_c} {str(idx.body.posT.dtype)}, "
+        f"posting_cap {idx.posting_cap}, pos_cap {idx.pos_cap}, pos_mat "
+        f"{idx.title.pos_mat is not None}/{idx.body.pos_mat is not None}, "
         f"zero weights {idx.has_zero_weight}, device bytes {idx.device_bytes()}"
     )
 
     # 4. kernels vs plain versions on the card
+    t0 = time.perf_counter()
     df = snap.body.df(range(snap.n_words)).astype("float64")
-    records = {"membership": [], "mixed": []}
+    records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": []}
     main_counts = idx.has_zero_weight  # the engine's emit_counts
     doc_sort = idx.body.tmax_blocks is not None
+
+    def held(kname: str, rep: dict, what: str) -> None:
+        say(f"# {what}: {rep}")
+        if not rep["ok"]:
+            raise RuntimeError(f"{kname} kernel disagrees with its plain version: {rep}")
+        records[kname].append(rep)
+
     for q in (4, 32):
         batch = check.to_device(check.keyword_batch(idx, 128, q, seed=q, df=df), "cuda")
         for emit in (True, False):
             got = check.run_k1(idx, batch, emit, body_tmax=doc_sort)
             want = check.run_k1(idx, batch, emit, body_tmax=doc_sort, plain=True)
-            rep = check.compare(got, want)
-            say(f"# K1 B=128 Q={q} counts={emit} split={batch['split']} tmax={doc_sort}: {rep}")
-            if not rep["ok"]:
-                raise RuntimeError(f"membership kernel disagrees with its plain version: {rep}")
-            records["membership"].append(rep)
+            held("membership", check.compare(got, want),
+                 f"K1 B=128 Q={q} counts={emit} split={batch['split']} tmax={doc_sort}")
     mbatch = check.to_device(
         check.mixed_batch(idx, 128, 4, 16, seed=1, df=df, snap=snap), "cuda"
     )
     for emit in (True, False):
         got = check.run_k2(idx, mbatch, emit)
         want = check.run_k2(idx, mbatch, emit, plain=True)
-        rep = check.compare(got, want)
-        say(f"# K2 B=128 Q=4 P=16 counts={emit} planes={idx.body.posT.dtype}: {rep}")
-        if not rep["ok"]:
-            raise RuntimeError(f"mixed kernel disagrees with its plain version: {rep}")
-        records["mixed"].append(rep)
+        held("mixed", check.compare(got, want),
+             f"K2 B=128 Q=4 P=16 counts={emit} planes={idx.body.posT.dtype}")
+    for q in (4, 32):
+        batch = check.to_device(check.keyword_batch(idx, 128, q, seed=q + 1, df=df, split=False),
+                                "cuda")
+        if not bool((batch["qn"][:-1] >= batch["qn"][1:]).all()):
+            raise RuntimeError("K3 batch rows are not qn-sorted")
+        for section in ("title", "body"):
+            for emit in (True, False):
+                got = check.run_k3(idx, batch, emit, section)
+                want = check.run_k3(idx, batch, emit, section, plain=True)
+                held("membership_1sec", check.compare_section(got, want),
+                     f"K3 {section} B=128 Q={q} counts={emit} qn-sorted")
+        for c in (1, 8):
+            inputs = check.fused_inputs(idx, batch, c, seed=c)
+            got = check.run_k4(idx, batch, inputs)
+            want = check.run_k4(idx, batch, inputs, plain=True)
+            held("fused", check.compare_final(got, want), f"K4 B=128 Q={q} C={c}")
     kbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df), "cuda")
+    cbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df, split=False), "cuda")
+    k4_in = check.fused_inputs(idx, cbatch, 1, seed=1)
     times = {
         "membership": (
             check.time_ms(lambda: check.run_k1(idx, kbatch, main_counts, doc_sort)),
@@ -195,11 +395,50 @@ def main() -> int:
             check.time_ms(lambda: check.run_k2(idx, mbatch, main_counts, plain=True), iters=3, warmup=1),
         ),
     }
+    variants = {}  # K3 and K4 per variant at B=128, Q=4, qn-sorted rows
+    for section in ("title", "body"):
+        for emit in (True, False):
+            variants[f"K3 {section} counts={emit}"] = (
+                check.time_ms(lambda: check.run_k3(idx, cbatch, emit, section)),
+                check.time_ms(lambda: check.run_k3(idx, cbatch, emit, section, plain=True),
+                              iters=5),
+            )
+    for c in (1, 8):
+        inputs = k4_in if c == 1 else check.fused_inputs(idx, cbatch, c, seed=c)
+        variants[f"K4 C={c}"] = (
+            check.time_ms(lambda: check.run_k4(idx, cbatch, inputs)),
+            check.time_ms(lambda: check.run_k4(idx, cbatch, inputs, plain=True), iters=5),
+        )
+    for what, (ms, plain_ms) in variants.items():
+        say(f"# {what} B=128 Q=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+    # the kernels line: the custom-blend route's K3 variant, K4 topics off
+    times["membership_1sec"] = variants["K3 body counts=True"]
+    times["fused"] = variants["K4 C=1"]
     for kname, (ms, plain_ms) in times.items():
-        say(f"# {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per B=128 batch "
-            f"({smi})")
+        say(f"# {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per B=128 call ({smi})")
+    qlen = kbatch["qn"].clamp(min=1).to(torch.float32)
+    tp0 = torch.zeros((128, idx.n_categories), device="cuda")
+    model = engine.model
 
-    # 5. serving through the port's HTTP front end
+    def rank_fused():
+        return scoring.score_queries_fused(
+            idx.title.fwd, idx.body.fwd, idx.mag_title, idx.mag_body, idx.pagerankT,
+            kbatch["term_ids"], qlen, tp0, topk=50,
+        )
+
+    def rank_forward():
+        return model.score_keywords(
+            idx, kbatch["term_ids"], qlen, tp0, topk=50, qn=kbatch["qn"],
+            qnb=kbatch["qnb"], hot_sids=kbatch["hot_sids"],
+        )
+
+    fused_ms, forward_ms = check.time_ms(rank_fused), check.time_ms(rank_forward)
+    say(f"# score_queries_fused {fused_ms:.4f} ms vs score_queries_forward (production "
+        f"keyword scorer: K1, hot split, finalize, top-k) {forward_ms:.4f} ms per B=128 "
+        f"batch ({smi}); kernel phase {time.perf_counter() - t0:.1f}s")
+    phase_launches = {}
+
+    # 5. serving through the port's HTTP front end (the reference blend)
     t0 = time.perf_counter()
     engine.warmup()
     n_hyd = engine.prewarm_hydration()
@@ -208,104 +447,138 @@ def main() -> int:
     queries = make_queries(snap, db, QUERIES, seed=args.seed + 1)
     kw_only = [q for q in queries if '"' not in q][:32]
     prefixes = ["w0", "w00", "w001", "w12", "w2", "zz"]
-    server = SearchServer(engine, batching=True)
-    host, port = server.start_background(port=0)
-    base = f"http://{host}:{port}"
-    k1.reset_launches()
-    k2.reset_launches()
-    results: dict[tuple[str, str], tuple[int, object, float]] = {}
-    lock = threading.Lock()
-
-    def fetch(kind: str, arg: str) -> None:
-        t = time.perf_counter()
-        if kind == "post":
-            req = urllib.request.Request(
-                base + "/query", data=json.dumps({"query": arg}).encode(),
-                headers={"Content-Type": "application/json"}, method="POST",
-            )
-        elif kind == "get":
-            req = base + "/query/" + urllib.parse.quote(arg)
-        else:
-            req = base + "/wordlist/" + urllib.parse.quote(arg)
-        with urllib.request.urlopen(req, timeout=300) as r:
-            status, body = r.status, json.loads(r.read())
-        with lock:
-            results[(kind, arg)] = (status, body, time.perf_counter() - t)
-
-    jobs = [("post", q) for q in queries]
-    t_http = time.perf_counter()
-    errors: list[BaseException] = []
-
-    def client(part: list[tuple[str, str]]) -> None:
-        try:
-            for job in part:
-                fetch(*job)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-
-    threads = [
-        threading.Thread(target=client, args=(jobs[i::CLIENTS],))
-        for i in range(CLIENTS)
-    ]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    t_post = time.perf_counter() - t_http
-    for q in kw_only:  # one at a time: single-row keyword batches (kernel K1)
-        fetch("get", q)
-    for pre in prefixes:
-        fetch("wordlist", pre)
-    server.shutdown()
-    if errors:
-        raise errors[0]
-    launches = {"membership": k1.LAUNCHES, "mixed": k2.LAUNCHES}
-    say(f"# serving: {len(results)} responses; kernel launches {launches}")
-    if not all(v[0] == 200 for v in results.values()):
-        raise RuntimeError("a request did not answer 200")
-    lat = sorted(v[2] for k, v in results.items() if k[0] == "post")
-    say(
-        f"# serving: {len(queries)} POST /query from {CLIENTS} clients in "
-        f"{t_post:.3f}s = {len(queries) / t_post:.1f} req/s; latency p50 "
-        f"{1e3 * lat[len(lat) // 2]:.2f} ms, p99 {1e3 * lat[int(len(lat) * 0.99)]:.2f} ms"
-    )
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    reset_launches()
+    results, t_post = http_burst(engine, [("post", q) for q in queries], CLIENTS)
+    # one client, one request at a time: single-row keyword batches (K1)
+    results.update(http_burst(
+        engine, [("get", q) for q in kw_only] + [("wordlist", p) for p in prefixes], 1
+    )[0])
+    phase_launches["serving"] = launches()
+    say(f"# serving: {len(results)} responses; kernel launches {phase_launches['serving']}")
+    say(f"# serving: {latency_line(results, len(queries), t_post)}")
+    if min(phase_launches["serving"][k] for k in ("membership", "mixed")) == 0:
+        raise RuntimeError(f"a kernel of the main path never launched: {phase_launches}")
     for pre in prefixes:
         words = results[("wordlist", pre)][1]
         if not isinstance(words, list) or not all(w.startswith(pre) for w in words):
             raise RuntimeError(f"/wordlist/{pre} answered {words!r:.200}")
-    # the same queries through the plain versions on the card
     ref_q = queries + kw_only
     with plain_kernels():
         ref = engine.query_batch(ref_q)
-    n_hits = 0
-    for (kind, q), want in zip(
-        [("post", q) for q in queries] + [("get", q) for q in kw_only], ref
-    ):
-        got = results[(kind, q)][1]
-        n_hits += len(got)
-        ranks = [r["FinalRank"] for r in got]
-        if ranks != sorted(ranks, reverse=True) or not all(
-            isinstance(x, float) and x == x and abs(x) != float("inf") for x in ranks
-        ):
-            raise RuntimeError(f"bad FinalRank order/values for {q!r}")
-        if not same_results(got, want):
-            raise RuntimeError(f"served results differ from the plain path for {q!r}")
-    say(f"# serving: all {len(ref_q)} ranked responses equal the plain path "
-        f"({n_hits} results); smoke took {time.perf_counter() - t_start:.1f}s")
+    got = [results[("post", q)][1] for q in queries] + [results[("get", q)][1] for q in kw_only]
+    n_hits = check_ranked(ref_q, got, ref, "serving")
+    say(f"# serving: all {len(ref_q)} ranked responses equal the plain path ({n_hits} results)")
+
+    # 6. fused ranking (K4) vs the production keyword scorer
+    reset_launches()
+    fs, fi = rank_fused()
+    phase_launches["fused_rank"] = launches()
+    ws, wi = rank_forward()
+    if idx.doc_perm is not None:  # the fused path returns permuted-space ids
+        fi = idx.doc_perm[fi.long()]
+    if not same_topk(fs, fi, ws, wi, rtol=1e-5, atol=1e-6):
+        raise RuntimeError("score_queries_fused disagrees with score_keywords top-50")
+    say(f"# fused ranking: B=128 top-50 equals score_keywords (ids through doc_perm, "
+        f"{int(torch.isfinite(ws).sum())} ranked); launches {phase_launches['fused_rank']}")
+
+    # 7. a custom-blend engine (kernel K3; phrases on the sparse lane)
+    t0 = time.perf_counter()
+    custom = QueryEngine(db, snapshot=snap, index=idx, device="cuda",
+                         model=BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0))
+    custom.warmup()
+    reset_launches()
+    with count_matcher_calls() as matcher:
+        got_kw = custom.query_batch(kw_only)
+        kw_launches = launches()
+        got = custom.query_batch(queries)
+    phase_launches["custom_blend"] = launches()
+    if kw_launches["membership_1sec"] == 0 or kw_launches["membership"] or matcher[0] == 0:
+        raise RuntimeError(f"custom blend routes: keyword {kw_launches}, "
+                           f"all {phase_launches['custom_blend']}, matcher calls {matcher[0]}")
+    with plain_kernels():
+        ref = custom.query_batch(kw_only + queries)
+    n_hits = check_ranked(kw_only + queries, got_kw + got, ref, "custom blend")
+    say(f"# custom blend: {len(kw_only) + len(queries)} queries equal the plain path "
+        f"({n_hits} results); launches {phase_launches['custom_blend']}, sparse-lane "
+        f"matcher calls {matcher[0]}; {time.perf_counter() - t0:.1f}s")
+
+    # 8. --ranker bm25 serving (K1 over BM25 tiles; every phrase on the sparse lane)
+    t0 = time.perf_counter()
+    bm25 = QueryEngine(db, snapshot=snap, index=idx, device="cuda", model=BM25Ranker())
+    bm25.warmup()
+    bm25.prewarm_hydration()
+    say(f"# bm25: engine + warmup in {time.perf_counter() - t0:.1f}s")
+    reset_launches()
+    with count_matcher_calls() as matcher:
+        results, wall = http_burst(bm25, [("post", q) for q in queries], CLIENTS)
+    phase_launches["bm25_serving"] = launches()
+    say(f"# bm25 serving: {latency_line(results, len(queries), wall)}; launches "
+        f"{phase_launches['bm25_serving']}, sparse-lane matcher calls {matcher[0]}")
+    if phase_launches["bm25_serving"]["membership"] == 0 or matcher[0] == 0:
+        raise RuntimeError("bm25 serving did not run K1 and the sparse lane")
+    with plain_kernels():
+        ref = bm25.query_batch(queries)
+    n_hits = check_ranked(queries, [results[("post", q)][1] for q in queries], ref, "bm25")
+    say(f"# bm25 serving: all {len(queries)} responses equal the plain path ({n_hits} results)")
+
+    # 9. the exact CSR route on a truncated index
+    t0 = time.perf_counter()
+    nt_np = nt.cpu().numpy()
+    cap = int(sorted(nt_np)[-3]) - 1  # at least three docs past the cap
+    saved_cap = device_index.DOC_TERM_CAP
+    device_index.DOC_TERM_CAP = cap
+    try:
+        trunc = QueryEngine(db, snapshot=snap, device="cuda")
+    finally:
+        device_index.DOC_TERM_CAP = saved_cap
+    if not trunc.index.dense_truncated:
+        raise RuntimeError(f"DOC_TERM_CAP={cap} did not truncate the index")
+    csr_calls = [0]
+    score_csr = BlendedRanker.score_csr
+
+    def counted_csr(*a, **k):
+        csr_calls[0] += 1
+        return score_csr(*a, **k)
+
+    csr_q = kw_only + queries[:128]
+    reset_launches()
+    BlendedRanker.score_csr = counted_csr
+    try:
+        with count_matcher_calls() as matcher:
+            got = trunc.query_batch(kw_only) + trunc.query_batch(queries[:128])
+    finally:
+        BlendedRanker.score_csr = score_csr
+    phase_launches["csr"] = launches()
+    if csr_calls[0] < 2 or matcher[0] == 0 or any(phase_launches["csr"].values()):
+        raise RuntimeError(f"CSR route: score_csr calls {csr_calls[0]}, matcher calls "
+                           f"{matcher[0]}, launches {phase_launches['csr']}")
+    with plain_kernels():
+        ref = engine.query_batch(csr_q)
+    n_hits = check_ranked(csr_q, got, ref, "CSR route", rtol=CSR_RTOL)
+    say(f"# CSR route: DOC_TERM_CAP {cap} truncates {int((nt_np > cap).sum())} docs; "
+        f"{len(csr_q)} queries through score_csr ({csr_calls[0]} calls, {matcher[0]} CSR "
+        f"matcher calls) equal the dense plain path ({n_hits} results); "
+        f"{time.perf_counter() - t0:.1f}s")
+    say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
-    for kname, src, rep_line in (
-        ("membership", "membership.cu", "spaghettisearch_tpu/ops/kernels/membership.py:274"),
-        ("mixed", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514"),
+    for kname, src, rep_line, path in (
+        ("membership", "membership.cu", "spaghettisearch_tpu/ops/kernels/membership.py:274",
+         "serving"),
+        ("mixed", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514", "serving"),
+        ("membership_1sec", "membership.cu",
+         "spaghettisearch_tpu/ops/kernels/membership.py:322", "custom_blend"),
+        ("fused", "fused.cu", "spaghettisearch_tpu/ops/kernels/fused.py:111", "fused_rank"),
     ):
+        n = phase_launches[path][kname]
+        if n == 0:
+            raise RuntimeError(f"{kname} never launched on its ranked path ({path})")
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": f"spaghettisearch_tpu_torch/csrc/{src}",
             "replaces": rep_line,
-            "launches": launches[kname],
+            "launches": n,
             "max_abs_err": max(r["max_abs_err"] for r in records[kname]),
             "ms": times[kname][0],
             "plain_ms": times[kname][1],

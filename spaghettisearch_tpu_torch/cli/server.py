@@ -5,8 +5,9 @@ with $PORT env).
 
 --device defaults to cuda and the CLI refuses to start without CUDA;
 --device cpu is an explicit choice (the plain-version CPU recipe), never a
-fallback. Options of the JAX package's CLI that this package does not
-serve yet (--platform, --meshShards, --ranker bm25) exit with a message.
+fallback. --ranker bm25 serves Okapi BM25 (models/bm25.py) instead of the
+reference blend. Options of the JAX package's CLI that this package does
+not serve yet (--platform, --meshShards) exit with a message.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ def main(argv: list[str] | None = None) -> None:
                          "yields 0 (retrieval/main_retrieve.go:142-145)")
     ap.add_argument("--snapshot", default=None,
                     help="load a saved columnar snapshot instead of walking the store")
-    ap.add_argument("--ranker", choices=("blended", "bm25"), default="blended")
+    ap.add_argument("--ranker", choices=("blended", "bm25"), default="blended",
+                    help="blended = the reference's TF-IDF/PageRank formula; "
+                         "bm25 = Okapi BM25 with field boosts")
     ap.add_argument("--meshShards", type=int, default=0)
     ap.add_argument("--platform", default=None)
     ap.add_argument("--bigBatch", action="store_true",
@@ -75,8 +78,6 @@ def main(argv: list[str] | None = None) -> None:
         sys.exit(_NOT_PORTED.format("--platform (a JAX backend switch)"))
     if args.meshShards:
         sys.exit(_NOT_PORTED.format("--meshShards (the multi-chip mesh)"))
-    if args.ranker == "bm25":
-        sys.exit(_NOT_PORTED.format("--ranker bm25"))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -94,6 +95,10 @@ def main(argv: list[str] | None = None) -> None:
 
         snapshot = load_snapshot(args.snapshot)
     kwargs = {}
+    if args.ranker == "bm25":
+        from ..models.bm25 import BM25Ranker
+
+        kwargs["model"] = BM25Ranker()
     if args.bigBatch:
         kwargs["big_batch"] = True
     if args.phraseStale == "pure":

@@ -1,6 +1,7 @@
-// K1: forward-membership keyword scoring, title and body in one pass.
+// K1: forward-membership keyword scoring, title and body in one pass, and
+// K3, its one-section entry point (ss_membership1, below).
 //
-// Replaces the TPU kernel spaghettisearch_tpu/ops/kernels/membership.py
+// K1 replaces the TPU kernel spaghettisearch_tpu/ops/kernels/membership.py
 // pallas_forward_scores_2sec (_kernel2). For query row b and doc d, per
 // section:
 //     score[b, d] = sum_j fw[d, j] * #{q : ft[d, j] == tq[b, q]}
@@ -63,7 +64,49 @@ membership2_kernel(const int* __restrict__ title_ftT,
   store_rows<kCounts>(bs, bc, r0, B, D, d, live, score, count);
 }
 
+// K3: one section (replaces membership.py pallas_forward_scores / _kernel):
+// the same sweep over one [T, D] tile against one term tile, bounded per
+// 8-row sub-block by qn; no hot split and no doc-sorted bound, like the TPU
+// kernel.
+template <bool kCounts>
+__global__ void __launch_bounds__(kDocsPerBlock)
+membership1_kernel(const int* __restrict__ ftT, const float* __restrict__ fwT,
+                   int T, int D, const int* __restrict__ tq, int B, int Q,
+                   const int* __restrict__ qn_blk, float* __restrict__ out_s,
+                   float* __restrict__ out_c) {
+  __shared__ int s_tq[kRowTile * kQMax];
+  __shared__ int s_qn[kSubs];
+  const int r0 = blockIdx.y * kRowTile;
+  load_rows_i32(s_tq, tq, r0, B, Q);
+  load_bounds(s_qn, qn_blk, r0, B, Q);
+  __syncthreads();
+
+  const int d = blockIdx.x * kDocsPerBlock + threadIdx.x;
+  const bool live = d < D;
+  float score[kRowTile];
+  float count[kRowTile];
+  section_sweep<kCounts>(ftT, fwT, T, D, d, live, s_tq, s_qn, Q, score, count);
+  store_rows<kCounts>(out_s, out_c, r0, B, D, d, live, score, count);
+}
+
 }  // namespace ss
+
+extern "C" int ss_membership1(const int* ftT, const float* fwT, int T, int D,
+                              const int* tq, int B, int Q, const int* qn_blk,
+                              float* out_s, float* out_c, void* stream) {
+  const dim3 grid((D + ss::kDocsPerBlock - 1) / ss::kDocsPerBlock,
+                  (B + ss::kRowTile - 1) / ss::kRowTile);
+  const dim3 block(ss::kDocsPerBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_c != nullptr) {
+    ss::membership1_kernel<true><<<grid, block, 0, st>>>(
+        ftT, fwT, T, D, tq, B, Q, qn_blk, out_s, out_c);
+  } else {
+    ss::membership1_kernel<false><<<grid, block, 0, st>>>(
+        ftT, fwT, T, D, tq, B, Q, qn_blk, out_s, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ss_membership2(const int* title_ftT, const float* title_fwT,
                               int Tt, const int* body_ftT,

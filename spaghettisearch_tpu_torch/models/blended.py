@@ -1,11 +1,12 @@
 """The flagship ranking model: PageRank-blended vector-space cosine.
 
-The counterpart of spaghettisearch_tpu/models/blended.py for the reference
-blend: FinalRank = (w_pagerank*sqd + w_title*title + w_body*body) * scale,
+The counterpart of spaghettisearch_tpu/models/blended.py:
+FinalRank = (w_pagerank*sqd + w_title*title + w_body*body) * scale,
 cosine-normalized per section, candidates only. Device scoring goes to
-ops/scoring.py (kernels K1 and K2). Custom blends (the JAX package's
-_custom_score) and the exact CSR route are not ported yet (ROADMAP.md) and
-raise NotImplementedError instead of answering differently.
+ops/scoring.py: the reference blend on kernels K1 (keywords, with the sparse
+phrase fold) and K2 (the fused mixed lane); custom blends score each section
+with kernel K3 (_custom_score); score_csr is the exact CSR route for
+dense-truncated indexes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from spaghettisearch_tpu.config import MAX_RESULTS, SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
 from ..ops import scoring as _scoring
+from ..ops.kernels import membership as _k1
 
 
 @dataclass(frozen=True)
@@ -35,12 +37,8 @@ class BlendedRanker:
             and self.scale == SCORE_SCALE
         )
 
-    def _require_reference_blend(self) -> None:
-        if not self.is_reference_blend():
-            raise NotImplementedError(
-                "custom blend weights are not ported yet "
-                "(ROADMAP.md, still to port: the exact CSR path and custom blends)"
-            )
+    def _weights(self) -> tuple[float, float, float, float]:
+        return (self.w_pagerank, self.w_title, self.w_body, self.scale)
 
     def supports_hot(self, index) -> bool:
         """True when the hot-term dense body-weight cache can serve this
@@ -67,13 +65,36 @@ class BlendedRanker:
     ):
         """Keyword batch -> (scores [B, K], doc ids [B, K]) on device. qn is
         the per-row active term count (batch sorted descending by it)."""
-        self._require_reference_blend()
         k = min(topk or self.topk, index.n_docs) or 1
+        if not self.is_reference_blend():
+            return self._custom_forward(index, term_ids, qlen, topic_probs, k, qn)
         qnb, hot_sids, hot_w = self._hot_args(index, term_ids, qn, qnb, hot_sids)
         return _scoring.score_queries_forward(
             index.title.fwd, index.body.fwd,
             index.mag_title, index.mag_body, index.pagerank,
             term_ids, qlen, topic_probs, qn, qnb, hot_sids, hot_w,
+            index.body.tmax_blocks, index.doc_perm, topk=k,
+            emit_counts=index.has_zero_weight,
+        )
+
+    def score_with_phrase(
+        self, index, term_ids, qlen, topic_probs,
+        ph_docs, ph_tw, ph_bw, ph_fl, topk=None, qn=None,
+        qnb=None, hot_sids=None,
+    ):
+        """Keyword batch + the sparse phrase lane's host-compressed matches
+        (ph_* [B, E], pad doc n_docs_padded) folded in before finalize."""
+        k = min(topk or self.topk, index.n_docs) or 1
+        if not self.is_reference_blend():
+            return self._custom_forward(
+                index, term_ids, qlen, topic_probs, k, qn, (ph_docs, ph_tw, ph_bw, ph_fl)
+            )
+        qnb, hot_sids, hot_w = self._hot_args(index, term_ids, qn, qnb, hot_sids)
+        return _scoring.score_queries_forward_phrase(
+            index.title.fwd, index.body.fwd,
+            index.mag_title, index.mag_body, index.pagerank,
+            term_ids, qlen, topic_probs,
+            ph_docs, ph_tw, ph_bw, ph_fl, qn, qnb, hot_sids, hot_w,
             index.body.tmax_blocks, index.doc_perm, topk=k,
             emit_counts=index.has_zero_weight,
         )
@@ -89,8 +110,8 @@ class BlendedRanker:
         ph_ids, ph_valid, topk=None, qn=None, pn=None,
         qnb=None, hot_sids=None,
     ):
-        """Fused keyword + phrase lane: one mixed-kernel pass per batch."""
-        self._require_reference_blend()
+        """Fused keyword + phrase lane: one mixed-kernel pass per batch
+        (supports_mixed gates it on the reference blend)."""
         k = min(topk or self.topk, index.n_docs) or 1
         qnb, hot_sids, hot_w = self._hot_args(index, term_ids, qn, qnb, hot_sids)
         # no body_tmax: the engine's mixed lane runs the static sweep (the
@@ -104,3 +125,65 @@ class BlendedRanker:
             topk=k,
             emit_counts=index.has_zero_weight,
         )
+
+    def score_csr(
+        self, index, term_ids, qlen, topic_probs,
+        ph_docs=None, ph_tw=None, ph_bw=None, ph_fl=None, topk=None,
+    ):
+        """Exact CSR gather/scatter scoring (with the optional phrase fold).
+
+        The production route whenever the dense forward view was truncated
+        (index.dense_truncated): the CSR holds every posting, so scores and
+        candidacy of the >doc_term_cap documents stay exact."""
+        k = min(topk or self.topk, index.n_docs) or 1
+        if ph_docs is None:
+            ph_docs, ph_tw, ph_bw, ph_fl = _scoring.empty_phrase_fold(
+                term_ids.shape[0], index.match_pad, term_ids.device
+            )
+        blend = None if self.is_reference_blend() else self._weights()
+        # doc-sorted layout: the device doc_ids live in permuted space over
+        # [0, d_pad), so the scatter bound is match_pad and ids map back
+        return _scoring.score_queries(
+            index.title.offsets, index.title.doc_ids, index.title.weights,
+            index.body.offsets, index.body.doc_ids, index.body.weights,
+            index.mag_title, index.mag_body, index.pagerank,
+            term_ids, qlen, topic_probs,
+            ph_docs, ph_tw, ph_bw, ph_fl, blend, index.doc_perm,
+            posting_cap=index.posting_cap, topk=k, n_docs=index.match_pad,
+        )
+
+    def _custom_forward(self, index, term_ids, qlen, topic_probs, k, qn=None, phrase=None):
+        if phrase is None:
+            phrase = _scoring.empty_phrase_fold(
+                term_ids.shape[0], index.n_docs_padded, term_ids.device
+            )
+        return _custom_score(
+            index.title.fwd, index.body.fwd, index.mag_title, index.mag_body,
+            index.pagerank, self._weights(), term_ids, qlen, topic_probs, *phrase,
+            index.doc_perm, qn=qn, topk=k,
+        )
+
+
+def _custom_score(
+    title_fwd, body_fwd,  # ForwardArrays
+    mag_t, mag_b, pagerank,
+    weights,  # (w_pagerank, w_title, w_body, scale)
+    term_ids, qlen, topic_probs,
+    ph_docs, ph_tw, ph_bw, ph_fl,
+    doc_map=None,
+    *,
+    qn=None,
+    topk: int,
+):
+    """A custom blend's ranking: each section through kernel K3 (with
+    counts) over the full term tile (no hot fold: custom blends never take
+    the hot split), the phrase fold, then the weighted finalize and exact
+    top-k."""
+    ts, tc = _k1.forward_scores(title_fwd.ftT, title_fwd.fwT, term_ids, qn)
+    bs, bc = _k1.forward_scores(body_fwd.ftT, body_fwd.fwT, term_ids, qn)
+    pacc = _scoring.phrase_fold(ts.shape[1], ph_docs, ph_tw, ph_bw, ph_fl)
+    final = _scoring.finalize_scores(
+        ts + pacc[:, :, 0], tc + pacc[:, :, 2], bs + pacc[:, :, 1], bc,
+        mag_t, mag_b, pagerank, qlen, topic_probs, weights,
+    )
+    return _scoring.exact_top_k(final, topk, doc_map=doc_map)

@@ -2,7 +2,8 @@
 
 Each kernel source compiles with nvcc into a shared library with a plain C
 interface, loaded through ctypes. The build happens at first use, under a
-lock, into a content-hashed directory under `build/kernels/` at the root of
+per-library lock (so several libraries can build at once from threads),
+into a content-hashed directory under `build/kernels/` at the root of
 the checkout (git-ignored): a changed source or flag builds a new library,
 an unchanged one is reused. Only the sources in this package are compiled.
 """
@@ -29,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _built: dict[str, "KernelLibrary"] = {}
 
 
@@ -54,6 +56,8 @@ def nvcc_path() -> str:
 def load_library(name: str) -> KernelLibrary:
     """Compile csrc/<name>.cu (+ the shared headers) once and load it."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _built:
             return _built[name]
         import time

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import fused as k4
 from . import membership as k1
 from . import mixed as k2
 
@@ -20,15 +21,15 @@ from . import mixed as k2
 RTOL = 1e-6
 
 
-def keyword_batch(index, b: int, q: int, seed: int, df=None) -> dict:
+def keyword_batch(index, b: int, q: int, seed: int, df=None, split: bool = True) -> dict:
     """A seeded [b, q] keyword batch: 1-4 terms per row (up to q for rows
     of a catch-all batch), drawn proportional to `df` (uniform when None),
-    a few unknown-word rows included; with the index's hot cache, cold
-    terms first and hot slots in hot_sids; rows sorted like
-    engine.rank_async."""
+    a few unknown-word rows included; with the index's hot cache (and
+    split), cold terms first and hot slots in hot_sids; rows sorted like
+    engine.rank_async (by term count when there is no split)."""
     rng = np.random.default_rng(seed)
     n_words = index.n_words
-    hot_map = index.hot_body_map
+    hot_map = index.hot_body_map if split else None
     p = None if df is None else df / df.sum()
     max_terms = 4 if q <= 4 else q
     term_ids = np.full((b, q), n_words, np.int32)
@@ -130,6 +131,44 @@ def run_k1(index, batch: dict, emit_counts: bool, body_tmax: bool, plain: bool =
     )
 
 
+def run_k3(index, batch: dict, emit_counts: bool, section: str, plain: bool = False):
+    """K3's wrapper (or its plain version) on one section of the index, on
+    a to_device() batch (the full term tile, as the custom-blend route)."""
+    sec = getattr(index, section).fwd
+    if plain:
+        s, c = k1.plain_section_scores(sec.ftT, sec.fwT, batch["term_ids"])
+        return s, (c if emit_counts else None)
+    return k1.forward_scores(
+        sec.ftT, sec.fwT, batch["term_ids"], batch["qn"], emit_counts=emit_counts
+    )
+
+
+def fused_inputs(index, batch: dict, c: int, seed: int) -> tuple:
+    """K4's per-query inputs for a to_device() keyword batch: query_len =
+    the row's term count (>= 1) and, with c == 1, topics off (the index's
+    first PageRank row, zero probabilities); with c > 1, a seeded [c, D]
+    PageRank and Dirichlet topic probabilities."""
+    dev = batch["term_ids"].device
+    b = batch["term_ids"].shape[0]
+    qlen = batch["qn"].clamp(min=1).to(torch.float32)
+    if c == 1:
+        return qlen, index.pagerankT[:1].contiguous(), torch.zeros((b, 1), device=dev)
+    rng = np.random.default_rng(seed)
+    prT = rng.uniform(0, 1e-3, (c, index.n_docs_padded)).astype(np.float32)
+    tp = rng.dirichlet(np.ones(c), b).astype(np.float32)
+    return qlen, torch.from_numpy(prT).to(dev), torch.from_numpy(tp).to(dev)
+
+
+def run_k4(index, batch: dict, inputs: tuple, plain: bool = False):
+    """K4's wrapper (or its plain version) -> final [B, D]."""
+    qlen, prT, tp = inputs
+    fn = k4.plain_fused_final_scores if plain else k4.fused_final_scores
+    return fn(
+        index.title.fwd.ftT, index.title.fwd.fwT, index.body.fwd.ftT, index.body.fwd.fwT,
+        index.mag_title, index.mag_body, prT, batch["term_ids"], qlen, tp,
+    )
+
+
 def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False):
     """K2's wrapper (or its plain version) on a to_device() batch."""
     qnb = batch["qnb"] if batch["split"] else None
@@ -171,6 +210,32 @@ def compare(got, want) -> dict:
         "ok": ok, "max_abs_err": max_abs, "max_rel_err": max_rel,
         "candidates": int(cand_w.sum()),
     }
+
+
+def compare_section(got, want) -> dict:
+    """compare() for one section's (score, count | None)."""
+    z = torch.zeros_like(want[0])
+    return compare(
+        (got[0], got[1], z, None if got[1] is None else z),
+        (want[0], want[1], z, None if want[1] is None else z),
+    )
+
+
+def compare_final(got, want) -> dict:
+    """Final blended scores: the -inf (non-candidate) and +inf sets exact,
+    finite scores within RTOL. -> a report like compare()'s."""
+    ok = bool(torch.equal(got == -float("inf"), want == -float("inf")))
+    ok &= bool(torch.equal(got == float("inf"), want == float("inf")))
+    fin = torch.isfinite(want)
+    ok &= bool(torch.equal(torch.isfinite(got), fin))
+    g, w = got[fin], want[fin]
+    diff = (g - w).abs()
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    rel = diff / w.abs().clamp_min(1e-30)
+    max_rel = float(torch.where(w != 0, rel, diff).max()) if diff.numel() else 0.0
+    ok &= bool(torch.isclose(g, w, rtol=RTOL, atol=0.0).all())
+    return {"ok": ok, "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "candidates": int(fin.sum())}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -1,17 +1,20 @@
-"""K1: forward-membership keyword scoring, both sections in one pass.
+"""K1: forward-membership keyword scoring, both sections in one pass, and
+K3, its one-section entry point.
 
-The counterpart of spaghettisearch_tpu/ops/kernels/membership.py
-pallas_forward_scores_2sec. For one query batch and each section:
+K1 is the counterpart of spaghettisearch_tpu/ops/kernels/membership.py
+pallas_forward_scores_2sec, K3 of pallas_forward_scores (the custom-blend
+route scores each section with it). For one query batch and each section:
 
     mult[b, d, j]  = #occurrences of ft[d, j] among query b's terms
     score[b, d]    = sum_j fw[d, j] * mult[b, d, j]
     count[b, d]    = sum_j mult[b, d, j]
 
-`forward_scores_2sec` is the wrapper: on CUDA tensors it launches the
-hand-written kernel (csrc/membership.cu) or raises; on CPU tensors it runs
-`plain_forward_scores_2sec`, the plain PyTorch version of the same function
+`forward_scores_2sec` (K1) and `forward_scores` (K3) are the wrappers: on
+CUDA tensors they launch the hand-written kernels (csrc/membership.cu) or
+raise; on CPU tensors they run `plain_forward_scores_2sec` /
+`plain_section_scores`, the plain PyTorch versions of the same functions
 (the counterpart of the JAX package's XLA twin forward_section_scores,
-doc-blocked). The plain version is also the on-card reference.
+doc-blocked). The plain versions are also the on-card references.
 
 Layout: the index is passed transposed, ftT/fwT [T, D] (doc axis
 contiguous), with each doc's real slots first and -1 pads after; query pads
@@ -33,9 +36,10 @@ TMAX_BLOCK = 512
 #: kernel limits (csrc/common.cuh kQMax)
 Q_MAX = 32
 
-#: launches of the CUDA kernel since the last reset (the wrapper adds one
-#: per launch and nowhere else)
+#: launches of the CUDA kernels since the last reset (each wrapper adds one
+#: per launch and nowhere else): K1 (both sections) and K3 (one section)
 LAUNCHES = 0
+LAUNCHES_1SEC = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # title ftT, fwT, Tt
@@ -47,22 +51,30 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outs
     ctypes.c_void_p,  # stream
 ]
+_ARGTYPES_1SEC = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ftT, fwT, T, D
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # tq, B, Q, qn_blk
+    ctypes.c_void_p, ctypes.c_void_p,  # outs
+    ctypes.c_void_p,  # stream
+]
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, LAUNCHES_1SEC
+    LAUNCHES = LAUNCHES_1SEC = 0
 
 
 def library():
-    """The built K1 library (compiled on first use)."""
+    """The built K1/K3 library (compiled on first use)."""
     from ._build import load_library
 
     built = load_library("membership")
-    fn = built.lib.ss_membership2
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, argtypes in (
+        (built.lib.ss_membership2, _ARGTYPES), (built.lib.ss_membership1, _ARGTYPES_1SEC),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return built
 
 
@@ -223,3 +235,50 @@ def forward_scores_2sec(
         bs[:b],
         None if bc is None else bc[:b],
     )
+
+
+def forward_scores(
+    ftT: torch.Tensor,  # int32 [T, D]
+    fwT: torch.Tensor,  # f32 [T, D]
+    term_ids: torch.Tensor,  # int32 [B, Q]
+    qn: torch.Tensor | None = None,  # int32 [B] active term counts (sorted desc)
+    *,
+    emit_counts: bool = True,
+):
+    """K3: one section -> (score [B, D], count [B, D] | None). CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if term_ids.device.type == "cpu":
+        score, count = plain_section_scores(ftT, fwT, term_ids)
+        return score, (count if emit_counts else None)
+    if term_ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {term_ids.device}")
+    dev = term_ids.device
+    t, d = ftT.shape
+    b, q = term_ids.shape
+    _check(ftT, "ftT", torch.int32, 2, dev)
+    _check(fwT, "fwT", torch.float32, 2, dev)
+    _check(term_ids, "term_ids", torch.int32, 2, dev)
+    if fwT.shape != (t, d):
+        raise ValueError("forward tiles disagree on [T, D]")
+    if not 1 <= q <= Q_MAX:
+        raise ValueError(f"Q={q} outside [1, {Q_MAX}]")
+    if qn is None:
+        qn = torch.full((b,), q, dtype=torch.int32, device=dev)
+    b_pad = -(-b // 8) * 8
+    tq = pad_rows(term_ids, b_pad, torch.iinfo(torch.int32).max)
+    qn_blk = _qn_blocks(pad_rows(qn.to(torch.int32), b_pad, 0), q)
+    score = torch.empty((b_pad, d), dtype=torch.float32, device=dev)
+    count = torch.empty_like(score) if emit_counts else None
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ss_membership1(
+            ftT.data_ptr(), fwT.data_ptr(), t, d, tq.data_ptr(), b_pad, q,
+            qn_blk.data_ptr(), score.data_ptr(),
+            None if count is None else count.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"one-section membership kernel launch failed (cudaError {err})")
+    global LAUNCHES_1SEC
+    LAUNCHES_1SEC += 1
+    return score[:b], None if count is None else count[:b]

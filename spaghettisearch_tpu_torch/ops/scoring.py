@@ -1,10 +1,19 @@
 """Batched query scoring on torch: the device half of the online path.
 
-The counterpart of spaghettisearch_tpu/ops/scoring.py for the routes the
-port serves: keyword batches (forward membership, kernel K1) and the fused
-mixed lane (kernel K2), sharing one finalization (cosine normalize ->
-PageRank blend -> candidate mask -> exact top-k). Scoring semantics match
-the reference exactly:
+The counterpart of spaghettisearch_tpu/ops/scoring.py. Three formulations
+share one finalization (cosine normalize -> PageRank blend -> candidate
+mask -> exact top-k):
+
+1. forward membership: keyword batches (kernel K1), with the sparse phrase
+   fold (score_queries_forward_phrase), and the fused mixed lane (kernel
+   K2); score_queries_fused runs membership and finalization in one kernel
+   (K4), off the production path;
+2. CSR gather/scatter (score_queries): the exact route when the dense
+   forward view was truncated, and an independent oracle for the forward
+   path. Plain torch ops, as the JAX package computes it outside any
+   Pallas kernel.
+
+Scoring semantics match the reference exactly:
 - per-doc title/body score = sum of the doc's posting weights over the
   query terms, duplicate query terms counted once per occurrence
   (main_retrieve.go:62-78);
@@ -13,9 +22,6 @@ the reference exactly:
 - final = (0.33*sqd + 0.38*title + 0.29*body) * 100 (get_metadata.go:69);
 - only candidate docs (>= 1 posting hit or a phrase match) are ranked;
   non-candidates come back as -inf.
-
-Routes not ported yet (the exact CSR path, the sparse phrase lane, the fused
-single-kernel K4) are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,10 +30,13 @@ import torch
 
 from spaghettisearch_tpu.config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
+from .kernels import fused as _k4
 from .kernels import membership as _k1
 from .kernels import mixed as _k2
 
 _INT32_MAX = torch.iinfo(torch.int32).max
+#: (w_pagerank, w_title, w_body, scale) of the reference formula
+REFERENCE_BLEND = (W_PAGERANK, W_TITLE, W_BODY, SCORE_SCALE)
 
 
 def set_exact_matmul() -> None:
@@ -111,7 +120,13 @@ def finalize_scores(
     pagerank,  # [D, C]
     query_len,  # [B]
     topic_probs,  # [B, C]
+    weights=REFERENCE_BLEND,  # (w_pagerank, w_title, w_body, scale)
 ) -> torch.Tensor:
+    """(w_pr*sqd + w_title*title_n + w_body*body_n) * scale over
+    candidates, -inf elsewhere; each weight enters as an f32 scalar, as
+    both the reference constants and the JAX package's custom-blend array
+    do."""
+    w_pr, w_title, w_body, scale = weights
     qmag = torch.sqrt(query_len)[:, None]
     title_n = title_score / (mag_title[None, :] * qmag)
     body_n = body_score / (mag_body[None, :] * qmag)
@@ -119,7 +134,7 @@ def finalize_scores(
     body_n = torch.nan_to_num(body_n, nan=0.0, posinf=float("inf"), neginf=-float("inf"))
     # topic-sensitive importance: sqd[b, d] = topic_probs[b] . pagerank[d]
     sqd = topic_probs @ pagerank.T
-    final = (W_PAGERANK * sqd + W_TITLE * title_n + W_BODY * body_n) * SCORE_SCALE
+    final = (w_pr * sqd + w_title * title_n + w_body * body_n) * scale
     count = title_count + body_count
     return torch.where(count > 0, final, torch.full_like(final, -float("inf")))
 
@@ -162,6 +177,46 @@ def _fold_hot(bs, bc, hot_w, hot_sids):
         if bc is not None:  # true-count path: hot candidacy must count too
             bc = bc + (hot > 0).to(bs.dtype)
     return bs, bc
+
+
+def score_queries_fused(
+    title_fwd, body_fwd,  # ForwardArrays
+    mag_title, mag_body,  # f32 [D]
+    pagerankT,  # f32 [C, D]
+    term_ids,  # int32 [B, Q]
+    query_len,  # f32 [B]
+    topic_probs,  # f32 [B, C]
+    *,
+    topk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keyword-only path through one kernel (K4): membership scoring for
+    both sections + finalization, then exact top-k. No qn bound, no hot
+    split and no doc_map: under the doc-sorted layout the ids are
+    permuted-space ids, as the JAX package's score_queries_fused returns."""
+    final = _k4.fused_final_scores(
+        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
+        mag_title, mag_body, pagerankT, term_ids, query_len, topic_probs,
+    )
+    return exact_top_k(final, topk)
+
+
+def empty_phrase_fold(b: int, pad_doc: int, device, e: int = 8):
+    """An all-pad phrase fold (no matches): ph_docs, ph_tw, ph_bw, ph_fl."""
+    zeros = torch.zeros((b, e), dtype=torch.float32, device=device)
+    return torch.full((b, e), pad_doc, dtype=torch.int32, device=device), zeros, zeros, zeros
+
+
+def phrase_fold(
+    n_docs: int, ph_docs, ph_tw, ph_bw, ph_fl  # ph_docs int32 [B, E]
+) -> torch.Tensor:
+    """Scatter sparse phrase matches into [B, n_docs, 3] (title weight, body
+    weight, match flag). Ids >= n_docs are pads and are dropped (the JAX
+    package's scatter mode="drop" over an n_docs+1 wide accumulator)."""
+    b = ph_docs.shape[0]
+    acc = torch.zeros((b, n_docs + 1, 3), dtype=torch.float32, device=ph_docs.device)
+    idx = ph_docs.long().clamp(max=n_docs)[:, :, None].expand(-1, -1, 3)
+    acc.scatter_add_(1, idx, torch.stack([ph_tw, ph_bw, ph_fl], dim=-1))
+    return acc[:, :n_docs]
 
 
 def score_queries_forward(
@@ -229,5 +284,164 @@ def score_queries_mixed(
     ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)
     final = finalize_scores(
         ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
+    )
+    return exact_top_k(final, topk, doc_map=doc_map)
+
+
+def score_queries_forward_phrase(
+    title_fwd, body_fwd,  # ForwardArrays
+    mag_title, mag_body, pagerank,
+    term_ids,  # int32 [B, Q]
+    query_len,  # f32 [B]
+    topic_probs,  # f32 [B, C]
+    phrase_doc_ids,  # int32 [B, E] host-compressed matches, pad >= n_docs
+    phrase_title_w,  # f32 [B, E]
+    phrase_body_w,  # f32 [B, E]
+    phrase_flag,  # f32 [B, E]
+    qn=None,
+    qnb=None,
+    hot_sids=None,
+    hot_w=None,
+    body_tmax=None,
+    doc_map=None,
+    *,
+    topk: int,
+    emit_counts: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward keyword scoring (kernel K1) + the sparse phrase lane's fold.
+    Under the doc-sorted layout (doc_map set) phrase_doc_ids are already
+    permuted-space ids: the matcher reads the index's remapped doc_ids."""
+    n_docs = title_fwd.ftT.shape[1]
+    ts, tc, bs, bc = _k1.forward_scores_2sec(
+        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
+        emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
+    )
+    bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
+    pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
+    if tc is None:  # counts elided: candidacy from scores + phrase flags
+        tc = ((ts + bs > 0) | (pacc[:, :, 2] > 0)).to(ts.dtype)
+        bc = torch.zeros_like(tc)
+    else:
+        tc = tc + pacc[:, :, 2]
+    ts = ts + pacc[:, :, 0]
+    bs = bs + pacc[:, :, 1]
+    final = finalize_scores(
+        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
+    )
+    return exact_top_k(final, topk, doc_map=doc_map)
+
+
+# ---------------------------------------------------------------------- #
+# CSR gather/scatter formulation (exact route + parity oracle)
+# ---------------------------------------------------------------------- #
+
+
+def _gather_section(
+    post_offsets,  # int32 [V+2] (sentinel empty row at V)
+    doc_ids,  # int32 [P_pad], pad = n_docs
+    weights,  # f32 [P_pad]
+    term_ids,  # int32 [B, Q], pad = V (sentinel)
+    posting_cap: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (docs [B, Q, L], w [B, Q, L], valid [B, Q, L])"""
+    t = term_ids.long()
+    start = post_offsets[t].long()
+    end = post_offsets[t + 1].long()
+    idx = start[..., None] + torch.arange(posting_cap, device=t.device)
+    valid = idx < end[..., None]
+    idx = torch.where(valid, idx, doc_ids.shape[0] - 1)
+    docs = doc_ids[idx]
+    w = torch.where(valid, weights[idx], 0.0)
+    return docs, w, valid
+
+
+def _scatter_scores(docs, w, valid, n_docs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter (weight, candidate count) per doc into [B, n_docs+1, 2] and
+    drop the pad column. -> (scores [B, D], count [B, D])"""
+    b = docs.shape[0]
+    flat = docs.reshape(b, -1).long().clamp(max=n_docs)
+    payload = torch.stack([w.reshape(b, -1), valid.reshape(b, -1).to(w.dtype)], dim=-1)
+    acc = torch.zeros((b, n_docs + 1, 2), dtype=w.dtype, device=w.device)
+    acc.scatter_add_(1, flat[:, :, None].expand(-1, -1, 2), payload)
+    return acc[:, :n_docs, 0], acc[:, :n_docs, 1]
+
+
+def csr_scores(
+    title_offsets, title_doc_ids, title_weights,
+    body_offsets, body_doc_ids, body_weights,
+    term_ids,  # int32 [B, Q], pad = V
+    phrase_doc_ids,  # int32 [B, E], pad = n_docs
+    phrase_title_w, phrase_body_w, phrase_flag,
+    *,
+    posting_cap: int,
+    n_docs: int,
+):
+    """Per-section (score, count) [B, n_docs] through the CSR formulation,
+    with the sparse phrase matches (weights + candidacy) folded in."""
+    title_score, title_count = _scatter_scores(*_gather_section(
+        title_offsets, title_doc_ids, title_weights, term_ids, posting_cap
+    ), n_docs)
+    body_score, body_count = _scatter_scores(*_gather_section(
+        body_offsets, body_doc_ids, body_weights, term_ids, posting_cap
+    ), n_docs)
+    pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
+    return (
+        title_score + pacc[:, :, 0], title_count + pacc[:, :, 2],
+        body_score + pacc[:, :, 1], body_count,
+    )
+
+
+def score_dense(
+    title_offsets, title_doc_ids, title_weights,
+    body_offsets, body_doc_ids, body_weights,
+    mag_title, mag_body, pagerank,
+    term_ids, query_len, topic_probs,
+    phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
+    *,
+    posting_cap: int,
+    n_docs: int,
+    blend: tuple[float, float, float, float] | None = None,  # (w_pr, w_title, w_body, scale)
+) -> torch.Tensor:
+    """Dense final scores [B, n_docs] via the CSR formulation; folds the
+    sparse phrase matches before normalization. Doc-level arrays may be
+    padded beyond n_docs (sliced)."""
+    ts, tc, bs, bc = csr_scores(
+        title_offsets, title_doc_ids, title_weights,
+        body_offsets, body_doc_ids, body_weights,
+        term_ids, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
+        posting_cap=posting_cap, n_docs=n_docs,
+    )
+    return finalize_scores(
+        ts, tc, bs, bc, mag_title[:n_docs], mag_body[:n_docs], pagerank[:n_docs],
+        query_len, topic_probs, REFERENCE_BLEND if blend is None else blend,
+    )
+
+
+def score_queries(
+    title_offsets, title_doc_ids, title_weights,
+    body_offsets, body_doc_ids, body_weights,
+    mag_title, mag_body, pagerank,
+    term_ids, query_len, topic_probs,
+    phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
+    blend=None,
+    doc_map=None,
+    *,
+    posting_cap: int,
+    topk: int,
+    n_docs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """CSR path with phrase folding. -> (top scores [B, K], doc ids [B, K]).
+
+    The production keyword scorer routes here when the dense forward view
+    was truncated (doc_term_cap): the CSR stays complete, so scores and
+    candidacy remain exact for pathological documents. Under the doc-sorted
+    layout pass n_docs = the padded doc count plus doc_map."""
+    final = score_dense(
+        title_offsets, title_doc_ids, title_weights,
+        body_offsets, body_doc_ids, body_weights,
+        mag_title, mag_body, pagerank,
+        term_ids, query_len, topic_probs,
+        phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
+        posting_cap=posting_cap, n_docs=n_docs, blend=blend,
     )
     return exact_top_k(final, topk, doc_map=doc_map)

@@ -24,8 +24,8 @@ from ..index.snapshot import IndexSnapshot, SectionCSR
 #: doc-axis padding granularity (the TPU scorer's doc block; kept for parity)
 DOC_BLOCK = 512
 
-#: bound on per-doc dense forward terms (docs beyond it are scored through
-#: the exact CSR path, which this package does not serve yet)
+#: bound on per-doc dense forward terms (an index with a doc beyond it is
+#: scored through the exact CSR path)
 DOC_TERM_CAP = 4096
 
 #: doc-sorted layout switches on automatically at and above this padded doc
@@ -86,6 +86,11 @@ class ForwardArrays(NamedTuple):
     ftT: torch.Tensor  # int32 [T, D_pad]
     fwT: torch.Tensor  # f32 [T, D_pad]
 
+
+#: pos_mat is only materialized while P_pad * pos_cap * 4 bytes stays under
+#: this budget (it only accelerates the sparse phrase matcher; the
+#: per-element position gather is exact)
+POS_MAT_BUDGET_BYTES = 512 << 20
 
 #: doc-major positions (posT) are built while the resident plane per
 #: section stays under this budget AND the per-posting unique-position
@@ -241,8 +246,12 @@ class DeviceSection:
     pos_offsets: torch.Tensor  # int32 [P_pad+1]
     positions: torch.Tensor  # f32 [L_pad]
     fwd: ForwardArrays
+    # fixed-width per-posting position rows [P_pad, pos_cap], inf-padded:
+    # row gathers for the sparse phrase matcher (ops/phrase.py
+    # match_phrase_fwd); None when over POS_MAT_BUDGET_BYTES
+    pos_mat: torch.Tensor | None = None
     # doc-major positions [C*T_pad, D_pad] for the mixed kernel; None when
-    # over budget / C too wide
+    # over budget / C too wide (phrases then take the sparse lane)
     posT: torch.Tensor | None = None
     pos_c: int = 0
     # True when some doc's dense forward row was truncated (doc_term_cap)
@@ -274,7 +283,7 @@ class DeviceSection:
     @classmethod
     def from_csr(
         cls, csr: SectionCSR, n_docs: int, d_pad: int, device: torch.device,
-        doc_term_cap: int | None = None,
+        doc_term_cap: int | None = None, pos_cap: int | None = None,
         perm: np.ndarray | None = None,  # [d_pad] new pos -> old doc
         inv_full: np.ndarray | None = None,  # [n_docs+1] old -> new, pad -> d_pad
         tmax_blocks: np.ndarray | None = None,  # body only (doc-sorted)
@@ -284,6 +293,22 @@ class DeviceSection:
 
         if doc_term_cap is None:
             doc_term_cap = DOC_TERM_CAP
+        pos_mat = None
+        p_pad = csr.doc_ids.shape[0]
+        if pos_cap and p_pad * pos_cap * 4 <= POS_MAT_BUDGET_BYTES:
+            n_post = csr.n_postings
+            pm = np.full((p_pad, pos_cap), np.inf, np.float32)
+            if n_post:
+                pidx = csr.pos_offsets[:n_post, None] + np.arange(
+                    pos_cap, dtype=np.int64
+                )
+                pvalid = pidx < csr.pos_offsets[1 : n_post + 1, None]
+                pm[:n_post] = np.where(
+                    pvalid,
+                    csr.positions[np.minimum(pidx, csr.positions.shape[0] - 1)],
+                    np.inf,
+                )
+            pos_mat = _put(pm, device)
         # append sentinel row (empty range) for unknown/padded term ids
         offsets = np.concatenate([csr.post_offsets, csr.post_offsets[-1:]])
         n_post = csr.n_postings
@@ -346,6 +371,7 @@ class DeviceSection:
             pos_offsets=_put(csr.pos_offsets, device),
             positions=_put(csr.positions, device),
             fwd=fwd,
+            pos_mat=pos_mat,
             posT=posT,
             pos_c=pos_c,
             dense_truncated=truncated,
@@ -369,6 +395,8 @@ class DeviceIndex:
     n_docs: int  # true doc count (hydration bound)
     n_docs_padded: int
     n_words: int
+    posting_cap: int  # covers max df across both sections
+    pos_cap: int  # covers max positions per posting
     device: torch.device
     # hot-term dense body-weight cache (see _build_hot_cache)
     hot_body_w: torch.Tensor | None = None  # f32 [H_pad, D_pad]
@@ -427,12 +455,14 @@ class DeviceIndex:
             pr = snap.pagerank
         else:
             pr = np.zeros((snap.n_docs, 1), dtype=np.float32)
+        posting_cap = _round_up(max(snap.title.max_df, snap.body.max_df, 1))
+        pos_cap = _round_up(max(snap.title.max_positions, snap.body.max_positions, 1), 8)
         title = DeviceSection.from_csr(
-            snap.title, snap.n_docs, d_pad, device,
+            snap.title, snap.n_docs, d_pad, device, pos_cap=pos_cap,
             perm=perm, inv_full=inv_full, t_multiple=t_multiple,
         )
         body = DeviceSection.from_csr(
-            snap.body, snap.n_docs, d_pad, device,
+            snap.body, snap.n_docs, d_pad, device, pos_cap=pos_cap,
             perm=perm, inv_full=inv_full, tmax_blocks=body_tmax,
             t_multiple=t_multiple,
         )
@@ -460,6 +490,8 @@ class DeviceIndex:
             n_docs=snap.n_docs,
             n_docs_padded=d_pad,
             n_words=snap.n_words,
+            posting_cap=posting_cap,
+            pos_cap=pos_cap,
             device=device,
             hot_body_w=hot_w,
             hot_body_map=hot_map,
@@ -470,6 +502,14 @@ class DeviceIndex:
     @property
     def n_categories(self) -> int:
         return int(self.pagerank.shape[1])
+
+    @property
+    def match_pad(self) -> int:
+        """Doc-id pad for matcher outputs and phrase fold arrays: real ids
+        are < match_pad. The natural layout pads postings with n_docs; the
+        doc-sorted layout scatters real docs across [0, d_pad) (device
+        doc_ids are remapped), so its pad is d_pad."""
+        return self.n_docs_padded if self.doc_perm is not None else self.n_docs
 
     @property
     def dense_truncated(self) -> bool:
@@ -495,7 +535,7 @@ class DeviceIndex:
 
 
 _SECTION_FIELDS = (
-    "offsets", "doc_ids", "weights", "pos_offsets", "positions", "posT",
+    "offsets", "doc_ids", "weights", "pos_offsets", "positions", "pos_mat", "posT",
     "tmax_blocks",
 )
 _FWD_FIELDS = ("ft", "fw", "fj", "ftT", "fwT")
@@ -517,7 +557,7 @@ def _flatten(index) -> dict:
         out[f"{sec}.has_zero_weight"] = s.has_zero_weight
     for f in _INDEX_FIELDS:
         out[f] = getattr(index, f)
-    for f in ("n_docs", "n_docs_padded", "n_words"):
+    for f in ("n_docs", "n_docs_padded", "n_words", "posting_cap", "pos_cap"):
         out[f] = getattr(index, f)
     out["hot_body_map"] = index.hot_body_map
     return out

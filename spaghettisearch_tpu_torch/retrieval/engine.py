@@ -1,9 +1,17 @@
 """The query engine: host query parsing + device ranking on torch.
 
-The counterpart of spaghettisearch_tpu/retrieval/engine.py for the online
-/query path: the same query grammar, batch-shape policy and host-side
-hydration, with device scoring through ops/scoring.py on the hand-written
-kernels (K1 for keyword-only batches, K2 for every batch holding a phrase).
+The counterpart of spaghettisearch_tpu/retrieval/engine.py for the
+single-device engine: the same query grammar, batch-shape policy, routes
+and host-side hydration, with device scoring through the ranking model
+(models/blended.py, models/bm25.py) on the hand-written kernels. Routes:
+- keyword-only batches: the model's score_keywords (K1; custom blends K3);
+- batches holding a phrase, when the model and index support the fused
+  mixed lane (reference blend, position planes): one K2 pass;
+- otherwise the two-phase sparse phrase lane: ops/phrase.py matches the
+  phrases, the host compresses the matches, and score_with_phrase folds
+  them into the keyword scores (K1);
+- a dense-truncated index (some doc past DOC_TERM_CAP): the exact CSR route
+  (score_csr), with the CSR phrase matcher.
 
 Query grammar parity:
 - "..." spans are phrases (regex `".*?"`, reference: util.go:151-160), removed
@@ -12,11 +20,6 @@ Query grammar parity:
   positional chain (reference: main_retrieve.go:26,45 passes the joined list);
 - query_len for cosine normalization = #keyword tokens + #phrase tokens
   (reference: main_retrieve.go:90).
-
-Routes this package does not serve yet raise NotImplementedError naming
-the ROADMAP.md item, never a different answer: dense-truncated indexes (the
-exact CSR path), phrase queries on an index without position planes (the
-sparse phrase lane), custom blends and BM25.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from spaghettisearch_tpu.utils.timing import TRACER
 
 from ..index.snapshot import IndexSnapshot, build_snapshot
 from ..models.blended import BlendedRanker
+from ..ops.phrase import match_phrase_batch, match_phrase_fwd_batch
 from ..ops.scoring import set_exact_matmul
 from .device_index import DeviceIndex
 from .summary import get_summary
@@ -84,10 +88,13 @@ def parse_query(text: str) -> ParsedQuery:
 # Batch-shape policy (the JAX package's compile-shape policy, kept so the
 # two engines pad batches identically): batch b in {B_SMALL, WARM_B_MAX}
 # (+ B_BIG / B_PHRASE when opted in); keywords q in {Q_BASE, Q_CATCHALL},
-# terms beyond Q_CATCHALL dropped; phrase terms padded to P_LEVELS[-1],
-# terms beyond it dropped. On the GPU a shape costs no compile, but every
-# shape warmup() runs once pays the kernels' one-time build and load, and
-# the kernels' per-8-row loop bounds make pad rows nearly free.
+# terms beyond Q_CATCHALL dropped; fused-lane phrase terms padded to
+# P_LEVELS[-1], sparse-lane phrases matched at P_BASE (batched) or one at a
+# time at the next P_LEVELS bucket, terms beyond it dropped; sparse phrase
+# fold width e: E_BASE, then per-index levels. On the GPU a shape costs no
+# compile, but every shape warmup() runs once pays the kernels' one-time
+# build and load, and the kernels' per-8-row loop bounds make pad rows
+# nearly free.
 # --------------------------------------------------------------------- #
 WARM_B_MAX = 128
 B_SMALL = 16  # low-latency bucket for trickle traffic / CLI single queries
@@ -97,8 +104,40 @@ Q_BASE = 4
 Q_CATCHALL = 32
 P_BASE = 4
 P_LEVELS = (P_BASE, 8, 16)
+MATCHER_BP = (1, 4, 16)  # sparse-lane matcher row buckets (chunked above 16)
+E_BASE = 64
 # phrase-class batch segregation advice threshold (class_batching_pays)
 SEGREGATE_MIN_DOCS = 1 << 19
+
+
+def _p_level(n: int) -> int:
+    for lvl in P_LEVELS:
+        if n <= lvl:
+            return lvl
+    return P_LEVELS[-1]
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _e_levels(n_docs: int) -> tuple[int, ...]:
+    """Sparse phrase fold widths: E_BASE, then mid levels up to
+    pow2(n_docs), so a batch uploads [B, e] fold arrays near its real
+    match count."""
+    full = _pow2(max(n_docs, E_BASE))
+    return tuple(sorted({E_BASE, min(1024, full), min(8192, full), full}))
+
+
+def _cap_levels(posting_cap: int) -> tuple[int, ...]:
+    """Phrase-matcher posting-window levels: the matcher's cost is linear in
+    its cap (it gathers 2*cap candidate rows per section), so geometric
+    levels bound each phrase's cost to about its own generator df."""
+    return tuple(sorted({min(128, posting_cap), min(2048, posting_cap),
+                         posting_cap}))
 
 
 def _b_bucket(n: int) -> int:
@@ -203,6 +242,8 @@ class QueryEngine:
             self.index = DeviceIndex.from_snapshot(
                 self.snapshot, self.device, doc_sort=self.doc_sort
             )
+        if hasattr(self.model, "prepare"):  # model-specific device arrays
+            self.model.prepare(self.snapshot, self.index, self.device)
         # the (snapshot, index, model) triple readers must see together: a
         # single attribute store is atomic under the GIL, separates are not
         self._live = (self.snapshot, self.index, self.model)
@@ -235,6 +276,11 @@ class QueryEngine:
             snapshot, self.device, doc_sort=self.doc_sort
         )
         model = self.model
+        if hasattr(model, "prepare"):
+            # prepare into a clone: the live model's device arrays stay
+            # consistent for in-flight queries on the old live triple
+            model = copy.copy(model)
+            model.prepare(snapshot, index, self.device)
         if warm:
             ghost = copy.copy(self)
             ghost.db = db
@@ -295,20 +341,16 @@ class QueryEngine:
         snap, idx = live[0], live[1]
         model = live[2] if len(live) > 2 else self.model
         b_real = len(parsed)
-        if idx.dense_truncated:
-            raise NotImplementedError(
-                "dense-truncated index: the exact CSR path is not ported yet "
-                "(ROADMAP.md, still to port: the CSR exact path)"
-            )
         has_phrase = any(p.phrase_hashes for p in parsed)
-        fused = has_phrase and model.supports_mixed(idx)
-        if has_phrase and not fused:
-            raise NotImplementedError(
-                "phrase query without the fused mixed lane (no position "
-                "planes, or a custom blend): the sparse phrase lane is not "
-                "ported yet (ROADMAP.md, still to port: ops/phrase.py)"
-            )
-        b_catch = B_BIG if self.big_batch else WARM_B_MAX
+        fused = has_phrase and getattr(model, "supports_mixed", None) is not None \
+            and model.supports_mixed(idx)
+        # with big_batch the catch-all lives at (B_BIG, Q_CATCHALL) for
+        # fused-lane and keyword-only batches; the sparse phrase lane keeps
+        # its (WARM_B_MAX, ...) shapes
+        b_catch = (
+            B_BIG if self.big_batch and (fused or not has_phrase)
+            else WARM_B_MAX
+        )
         if b_real > b_catch:
             # wider than any warmed shape: split rather than overflow the
             # fill buffers
@@ -341,12 +383,40 @@ class QueryEngine:
                 )
         if fused:
             return self._rank_fused(parsed, topk, live, b, q, q_real, b_real)
+        matches: list[tuple[np.ndarray, ...]] = []
+        e = E_BASE
+        if has_phrase:
+            # the sparse phrase lane: batched positional intersection on the
+            # device, host-compressed to the real matches so the fold is tiny
+            matches = [(np.zeros(0, np.int32),) * 4 for _ in parsed]
+            ph_rows = [i for i, p in enumerate(parsed) if p.phrase_hashes]
+            batch = self._match_phrases_batch(
+                [parsed[i].phrase_hashes for i in ph_rows], live
+            )
+            for i, (d, tw, bw, fl) in zip(ph_rows, batch):
+                real = d < idx.match_pad
+                matches[i] = (d[real], tw[real], bw[real], fl[real])
+            e_real = max((len(m[0]) for m in matches), default=1)
+            e = next(lvl for lvl in _e_levels(idx.n_docs) if e_real <= lvl)
+            if e > E_BASE:
+                # wide fold -> the catch-all batch shape; q keeps its own
+                # bucket (the kernels skip qn=0 blocks, so pad rows are
+                # near-free)
+                if q_real > Q_BASE:
+                    q = Q_CATCHALL
+                if b < WARM_B_MAX:
+                    b = WARM_B_MAX
 
         hot_map = self._hot_map(model, idx)
         term_ids, qlen, qn, qnb, hot_sids = self._fill_keyword_rows(
             parsed, b, q, snap, hot_map
         )
         topic_probs = self._topic_probs(parsed, b, snap, idx)
+
+        # a truncated dense forward view would mis-score (and can drop
+        # candidacy for) docs with >doc_term_cap distinct terms; the CSR is
+        # always complete, so scoring routes through it then
+        use_csr = idx.dense_truncated
 
         # sort the batch by descending term count: each kernel 8-row block
         # then runs its compare loop only to the block max (results are
@@ -362,13 +432,39 @@ class QueryEngine:
             if hot_map is not None
             else {}
         )
+        rows = (_to_dev(term_ids[perm], dev), _to_dev(qlen[perm], dev),
+                _to_dev(topic_probs[perm], dev))
+        if not has_phrase:
+            with TRACER.span("rank.device"):
+                if use_csr:
+                    scores, ids = model.score_csr(idx, *rows, topk=topk)
+                else:
+                    scores, ids = model.score_keywords(
+                        idx, *rows, topk=topk, qn=_to_dev(qn[perm], dev), **hot_kw,
+                    )
+                return _RankHandle(scores, ids, inv, b_real)
+
+        # the fold's pad doc lands past the real doc range and is dropped
+        # (the doc-sorted layout never routes through use_csr: DeviceIndex
+        # gates doc_sort on truncation)
+        pad_doc = idx.n_docs if use_csr else idx.n_docs_padded
+        ph_docs = np.full((b, e), pad_doc, dtype=np.int32)
+        ph_tw = np.zeros((b, e), dtype=np.float32)
+        ph_bw = np.zeros((b, e), dtype=np.float32)
+        ph_fl = np.zeros((b, e), dtype=np.float32)
+        for i, (d, tw, bw, fl) in enumerate(matches):
+            n = len(d)
+            ph_docs[i, :n], ph_tw[i, :n] = d, tw
+            ph_bw[i, :n], ph_fl[i, :n] = bw, fl
+        # matches were filled in request order; apply the row sort
+        fold = tuple(_to_dev(a[perm], dev) for a in (ph_docs, ph_tw, ph_bw, ph_fl))
         with TRACER.span("rank.device"):
-            scores, ids = model.score_keywords(
-                idx,
-                _to_dev(term_ids[perm], dev), _to_dev(qlen[perm], dev),
-                _to_dev(topic_probs[perm], dev), topk=topk,
-                qn=_to_dev(qn[perm], dev), **hot_kw,
-            )
+            if use_csr:
+                scores, ids = model.score_csr(idx, *rows, *fold, topk=topk)
+            else:
+                scores, ids = model.score_with_phrase(
+                    idx, *rows, *fold, topk=topk, qn=_to_dev(qn[perm], dev), **hot_kw,
+                )
             return _RankHandle(scores, ids, inv, b_real)
 
     def _rank_fused(
@@ -477,39 +573,245 @@ class QueryEngine:
                 hot_sids[i, j] = hot_map[t]
         return term_ids, qlen, qn, qnb, hot_sids
 
+    def _phrase_weights(self, idx, model=None):
+        """Posting-weight arrays the phrase matcher sums: the ranking
+        model's own (e.g. BM25) when it provides them, else tf-idf."""
+        hook = getattr(model if model is not None else self.model,
+                       "phrase_weights", None)
+        if hook is not None:
+            return hook(idx)
+        return idx.title.weights, idx.body.weights
+
+    def _match_phrases_batch(self, phrase_sets: list[list[str]], live=None):
+        """Match every phrase query of a batch. Short phrases (<= P_BASE
+        terms, the overwhelmingly common case) run as one batched matcher
+        call; longer ones run one at a time at the next P_LEVELS bucket.
+        Returns per input a host (docs, title_w, body_w, flag) tuple."""
+        short = [i for i, s in enumerate(phrase_sets) if len(s) <= P_BASE]
+        out: list[tuple[np.ndarray, ...] | None] = [None] * len(phrase_sets)
+        if short:
+            res = self._match_phrases_fixed(
+                [phrase_sets[i] for i in short], P_BASE, live
+            )
+            for i, r in zip(short, res):
+                out[i] = r
+        for i, s in enumerate(phrase_sets):
+            if len(s) <= P_BASE:
+                continue
+            p = _p_level(len(s))
+            if len(s) > p:
+                import logging
+
+                logging.getLogger("spaghettisearch.engine").warning(
+                    "phrase has %d terms; matching the first %d", len(s), p
+                )
+            out[i] = self._match_phrases_fixed([s[:p]], p, live)[0]
+        return out
+
+    def _match_phrases_fixed(
+        self, phrase_sets: list[list[str]], p: int, live=None
+    ):
+        """Match `phrase_sets`, all padded to exactly `p` terms, on the
+        device: rows grouped by posting-cap level (each phrase pays about
+        its own generator df), chunked at MATCHER_BP[-1] rows per call."""
+        if live is None:
+            live = self._live
+        snap, idx = live[0], live[1]
+        model = live[2] if len(live) > 2 else self.model
+        n_sets = len(phrase_sets)
+        ids_all = np.full((n_sets, p), snap.n_words, dtype=np.int32)
+        valid_all = np.zeros((n_sets, p), dtype=bool)  # pad rows: no terms
+        gens_all = np.zeros(n_sets, dtype=np.int32)
+        need = np.ones(n_sets, dtype=np.int64)
+        for i, hashes in enumerate(phrase_sets):
+            row = snap.term_ids(hashes)
+            ids_all[i, : len(row)] = row
+            valid_all[i, : len(row)] = True
+            t_df = snap.title.df(row)
+            b_df = snap.body.df(row)
+            g = int(np.argmin(t_df + b_df))
+            gens_all[i] = g
+            need[i] = max(1, int(t_df[g]), int(b_df[g]))
+
+        t_w, b_w = self._phrase_weights(idx, model)
+        dev = idx.device
+        if idx.dense_truncated:
+            # a pathological doc's dense row was capped: the forward matcher
+            # could under-match it, so use the exact CSR formulation (full
+            # posting_cap: its membership searches every term's window)
+            res = match_phrase_batch(
+                idx.title.offsets, idx.title.doc_ids, t_w,
+                idx.title.pos_offsets, idx.title.positions,
+                idx.body.offsets, idx.body.doc_ids, b_w,
+                idx.body.pos_offsets, idx.body.positions,
+                _to_dev(ids_all, dev), _to_dev(valid_all, dev), _to_dev(gens_all, dev),
+                posting_cap=idx.posting_cap, pos_cap=idx.pos_cap, n_docs=idx.n_docs,
+            )
+            return self._fetch_matches([(np.arange(n_sets), res)], n_sets, idx.n_docs)
+
+        levels = _cap_levels(idx.posting_cap)
+        level_of = np.searchsorted(np.asarray(levels), need)
+        t_fwd = idx.title.fwd_device()  # lazy ft/fj upload >1.4M docs
+        b_fwd = idx.body.fwd_device()
+        pending = []  # dispatch every chunk, then fetch once
+        for li, cap in enumerate(levels):
+            rows = np.flatnonzero(level_of == li)
+            for s0 in range(0, len(rows), MATCHER_BP[-1]):
+                chunk = rows[s0 : s0 + MATCHER_BP[-1]]
+                res = match_phrase_fwd_batch(
+                    t_fwd.ft, t_fwd.fj, t_w,
+                    idx.title.pos_offsets, idx.title.positions,
+                    b_fwd.ft, b_fwd.fj, b_w,
+                    idx.body.pos_offsets, idx.body.positions,
+                    idx.title.offsets, idx.title.doc_ids,
+                    idx.body.offsets, idx.body.doc_ids,
+                    _to_dev(ids_all[chunk], dev), _to_dev(valid_all[chunk], dev),
+                    _to_dev(gens_all[chunk], dev),
+                    idx.title.pos_mat, idx.body.pos_mat,
+                    posting_cap=cap, pos_cap=idx.pos_cap, n_docs=idx.match_pad,
+                )
+                pending.append((chunk, res))
+        return self._fetch_matches(pending, n_sets, idx.match_pad)
+
+    @staticmethod
+    def _fetch_matches(pending, n_sets: int, pad: int):
+        """Matcher outputs [rows, E] on the device -> per row the host
+        (docs, title_w, body_w, flag) of its real matches (ids < pad), in
+        ascending doc order. Each chunk is sorted by doc id on the device
+        (real ids first) and cut to its widest row before the copy: one
+        sync for the match counts, then small copies."""
+        out: list[tuple[np.ndarray, ...] | None] = [None] * n_sets
+        cut = []
+        for rows, (d, tw, bw, fl) in pending:
+            d, order = torch.sort(d, dim=1)
+            vals = torch.stack([torch.gather(x, 1, order) for x in (tw, bw, fl)])
+            cut.append((rows, d, vals, (d < pad).sum(dim=1)))
+        n_real = torch.cat([c[3] for c in cut]).cpu().numpy() if cut else []
+        off = 0
+        for rows, d, vals, _ in cut:
+            n = n_real[off : off + len(rows)]
+            off += len(rows)
+            k = int(n.max(initial=0))
+            d_h = d[:, :k].cpu().numpy()
+            v_h = vals[:, :, :k].cpu().numpy()
+            for j, r in enumerate(rows):
+                m = int(n[j])
+                out[r] = (d_h[j, :m], v_h[0, j, :m], v_h[1, j, :m], v_h[2, j, :m])
+        return out
+
     # ------------------------------------------------------------------ #
     # public API
     # ------------------------------------------------------------------ #
 
     def warmup(self, max_batch: int = WARM_B_MAX) -> None:
-        """Run every (b, q) batch shape a live query can reach once before
-        serving traffic, so the first request pays no kernel build or load:
-        the keyword lane at every batch bucket (q=Q_BASE) plus the
-        long-keyword catch-all, and, when the index carries position
-        planes, the mixed lane likewise."""
+        """Run every batch shape family a live query can reach once before
+        serving traffic, so the first request pays no kernel build or load
+        (the JAX package's warmup walks the same families):
+
+        - the keyword lane at every batch bucket (q=Q_BASE) + the
+          long-keyword catch-all (the CSR route on a dense-truncated index);
+        - with the fused mixed lane: the mixed lane likewise;
+        - otherwise the sparse phrase lane: phrase batches at B_SMALL and
+          max_batch, the long-phrase buckets, the matcher at every row
+          bucket and cap level, and the phrase fold at every e level."""
         idx = self.index
-        if idx.n_docs == 0 or idx.dense_truncated:
-            return  # nothing this package serves on a dense-truncated index
+        snap = self.snapshot
+        if idx.n_docs == 0:
+            return
+        fused_ok = bool(
+            getattr(self.model, "supports_mixed", None)
+            and self.model.supports_mixed(idx)
+        )
         kw = parse_query("warmup")
         kw_long = ParsedQuery(
             raw="", stripped="", phrases=[],
             keyword_hashes=["0" * 32] * (Q_BASE + 1), phrase_hashes=[],
         )
         ph = parse_query('"warm up"')
-        ph_long = ParsedQuery(
-            raw="", stripped="", phrases=["w w"],
-            keyword_hashes=["0" * 32] * (Q_BASE + 1), phrase_hashes=["0" * 32] * 2,
-        )
+
+        def ph_n(n: int, kws: int = 0) -> ParsedQuery:  # n-term phrase
+            return ParsedQuery(
+                raw="", stripped="", phrases=["w " * n],
+                keyword_hashes=["0" * 32] * kws, phrase_hashes=["0" * 32] * n,
+            )
+
         buckets = tuple(dict.fromkeys(
             (B_SMALL, WARM_B_MAX, max_batch) + ((B_BIG,) if self.big_batch else ())
         ))
         batches = [[kw] * b for b in buckets] + [[kw_long]]
-        if self.model.supports_mixed(idx):
-            batches += [[ph] * b for b in buckets] + [[ph_long]]
+        if fused_ok:
+            batches += [[ph] * b for b in buckets] + [[ph_n(2, kws=Q_BASE + 1)]]
             if self.phrase_b32:
                 batches.append([ph] * B_PHRASE)
+        else:
+            batches += [[ph] * b for b in (B_SMALL, max_batch)]
+            batches += [[ph_n(n)] for n in (P_BASE + 1, P_LEVELS[-1])]
         for batch in batches:
             self.rank(batch, MAX_RESULTS)
+        if fused_ok:
+            return
+        # matcher cap levels cannot be reached with sentinel (df=0) terms:
+        # run them directly at every row bucket
+        t_w, b_w = self._phrase_weights(idx)
+        dev = idx.device
+
+        def warm_matcher(bp: int, p: int, cap: int) -> None:
+            ids = _to_dev(np.full((bp, p), snap.n_words, np.int32), dev)
+            valid = _to_dev(np.zeros((bp, p), bool), dev)
+            gens = _to_dev(np.zeros(bp, np.int32), dev)
+            if idx.dense_truncated:
+                match_phrase_batch(
+                    idx.title.offsets, idx.title.doc_ids, t_w,
+                    idx.title.pos_offsets, idx.title.positions,
+                    idx.body.offsets, idx.body.doc_ids, b_w,
+                    idx.body.pos_offsets, idx.body.positions,
+                    ids, valid, gens,
+                    posting_cap=idx.posting_cap, pos_cap=idx.pos_cap, n_docs=idx.n_docs,
+                )
+                return
+            t_fwd = idx.title.fwd_device()
+            b_fwd = idx.body.fwd_device()
+            match_phrase_fwd_batch(
+                t_fwd.ft, t_fwd.fj, t_w, idx.title.pos_offsets, idx.title.positions,
+                b_fwd.ft, b_fwd.fj, b_w, idx.body.pos_offsets, idx.body.positions,
+                idx.title.offsets, idx.title.doc_ids, idx.body.offsets, idx.body.doc_ids,
+                ids, valid, gens, idx.title.pos_mat, idx.body.pos_mat,
+                posting_cap=cap, pos_cap=idx.pos_cap, n_docs=idx.match_pad,
+            )
+
+        caps = _cap_levels(idx.posting_cap)
+        for bp in MATCHER_BP:
+            for cap in caps:
+                warm_matcher(bp, P_BASE, cap)
+        for p in P_LEVELS[1:]:
+            for cap in caps:
+                warm_matcher(1, p, cap)
+
+        # the wide-fold catch-alls at (WARM_B_MAX, q, e) for every fold level
+        # and both q families
+        pad_doc = idx.n_docs if idx.dense_truncated else idx.n_docs_padded
+
+        def warm_fold(e: int, qw: int) -> None:
+            term_ids = _to_dev(np.full((WARM_B_MAX, qw), snap.n_words, np.int32), dev)
+            qlen = _to_dev(np.ones(WARM_B_MAX, np.float32), dev)
+            tp = _to_dev(np.zeros((WARM_B_MAX, idx.n_categories), np.float32), dev)
+            ph_docs = _to_dev(np.full((WARM_B_MAX, e), pad_doc, np.int32), dev)
+            zeros = _to_dev(np.zeros((WARM_B_MAX, e), np.float32), dev)
+            if idx.dense_truncated:
+                self.model.score_csr(
+                    idx, term_ids, qlen, tp, ph_docs, zeros, zeros, zeros, topk=MAX_RESULTS,
+                )
+            else:
+                self.model.score_with_phrase(
+                    idx, term_ids, qlen, tp, ph_docs, zeros, zeros, zeros, topk=MAX_RESULTS,
+                    qn=_to_dev(np.zeros(WARM_B_MAX, np.int32), dev),
+                )
+
+        for e in _e_levels(idx.n_docs):
+            for qw in (Q_BASE, Q_CATCHALL):
+                if e == E_BASE and qw == Q_BASE:
+                    continue  # covered by the per-bucket batches above
+                warm_fold(e, qw)
 
     def query(self, text: str, max_results: int = MAX_RESULTS) -> list[dict]:
         return self.query_batch([text], max_results)[0]

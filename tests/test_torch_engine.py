@@ -1,7 +1,7 @@
 """The PyTorch port's engine against the JAX package's, on the CPU (the
 kernels' plain versions): engine vs engine top-50 on both lanes, layouts
-and the catch-all shape, the seeded corpus writer, refresh, and the routes
-the port refuses instead of answering differently.
+and the catch-all shape, the seeded corpus writer, refresh, and the
+alternative routes (sparse phrase lane, custom blend, CSR).
 
 Ids equal up to ties at equal scores (bench.py --mode parity's rule);
 FinalRank within rtol=1e-6."""
@@ -14,6 +14,7 @@ import torch
 
 from corpus import build_corpus_db
 from spaghettisearch_tpu.index.snapshot import build_snapshot as jax_build_snapshot
+from spaghettisearch_tpu.models.blended import BlendedRanker as JaxBlended
 from spaghettisearch_tpu.retrieval.engine import QueryEngine as JaxEngine
 from spaghettisearch_tpu.retrieval.engine import parse_query as jax_parse
 from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
@@ -112,18 +113,24 @@ def test_corpus_writer_snapshots_and_engines_agree(bench_db):
 
 
 def test_unported_routes_raise(crawl_db):
-    eng = QueryEngine(crawl_db, device="cpu")
-    eng.index.body.posT = None  # no position planes: the sparse phrase lane
-    with pytest.raises(NotImplementedError, match="sparse phrase lane"):
-        eng.rank([parse_query('"quantum physics"')])
-    eng.rank([parse_query("quantum physics")])  # keywords still served
+    """The routes the first slice of the port refused now answer, equal to
+    the JAX engine in the same setup: phrases without position planes (the
+    sparse phrase lane), a custom blend (kernel K3's route) and a
+    dense-truncated index (the exact CSR route). A missing device still
+    raises."""
+    no_planes = QueryEngine(crawl_db, device="cpu")
+    no_planes.index.body.posT = None
+    jax_no_planes = JaxEngine(crawl_db)
+    jax_no_planes.index.body.posT = None
+    assert not no_planes.model.supports_mixed(no_planes.index)
+    _check_rank(jax_no_planes, no_planes, CRAWL_QUERIES)
     custom = QueryEngine(crawl_db, device="cpu", model=BlendedRanker(w_title=0.5))
-    with pytest.raises(NotImplementedError, match="custom blend"):
-        custom.rank([parse_query("quantum physics")])
+    _check_rank(JaxEngine(crawl_db, model=JaxBlended(w_title=0.5)), custom, CRAWL_QUERIES)
     trunc = QueryEngine(crawl_db, device="cpu")
     trunc.index.title.dense_truncated = True
-    with pytest.raises(NotImplementedError, match="CSR"):
-        trunc.rank([parse_query("quantum")])
+    jax_trunc = JaxEngine(crawl_db)
+    jax_trunc.index.title.dense_truncated = True
+    _check_rank(jax_trunc, trunc, CRAWL_QUERIES)
     with pytest.raises(ValueError, match="explicit device"):
         QueryEngine(crawl_db)
 

@@ -1,6 +1,7 @@
-"""GPU tests of the PyTorch port: each hand-written CUDA kernel against its
-plain PyTorch version on the card, at small and at the main path's full
-widths (B=128, Q=4/32, P=16), and the CUDA engine against the CPU engine.
+"""GPU tests of the PyTorch port: each hand-written CUDA kernel (K1-K4)
+against its plain PyTorch version on the card, at small and at the main
+path's full widths (B=128, Q=4/32, P=16), and the CUDA engine against the
+CPU engine on the reference blend, BM25, a custom blend and the CSR route.
 
 This file imports no jax: on the card run it as
 
@@ -20,9 +21,13 @@ import torch
 
 from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
 from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
+from spaghettisearch_tpu_torch.models.blended import BlendedRanker
+from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
 from spaghettisearch_tpu_torch.ops.kernels import check
+from spaghettisearch_tpu_torch.ops.kernels import fused as k4
 from spaghettisearch_tpu_torch.ops.kernels import membership as k1
 from spaghettisearch_tpu_torch.ops.kernels import mixed as k2
+from spaghettisearch_tpu_torch.retrieval import device_index as tdi
 from spaghettisearch_tpu_torch.retrieval.device_index import DeviceIndex
 from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
 
@@ -98,6 +103,69 @@ def test_mixed_kernel_matches_plain(cuda, corpus, indexes, pos16, emit_counts, b
     assert got[0].shape == (b, idx.n_docs_padded)
 
 
+@pytest.mark.parametrize("section", ["title", "body"])
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("b,q", [(16, 4), (128, 4), (128, 32)])
+def test_one_section_kernel_matches_plain(cuda, corpus, indexes, section, emit_counts, b, q):
+    idx = indexes[True]
+    batch = check.to_device(
+        check.keyword_batch(idx, b, q, seed=b + q, df=_df(corpus[1]), split=False), cuda
+    )
+    assert bool((batch["qn"][:-1] >= batch["qn"][1:]).all())  # qn-sorted rows
+    n0 = k1.LAUNCHES_1SEC
+    got = check.run_k3(idx, batch, emit_counts, section)
+    assert k1.LAUNCHES_1SEC == n0 + 1
+    want = check.run_k3(idx, batch, emit_counts, section, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare_section(got, want)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+
+
+@pytest.mark.parametrize("doc_sort", [False, True])
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("b,q", [(13, 4), (128, 4), (128, 32)])
+def test_fused_kernel_matches_plain(cuda, corpus, indexes, doc_sort, c, b, q):
+    idx = indexes[doc_sort]
+    batch = check.to_device(
+        check.keyword_batch(idx, b, q, seed=b * q + c, df=_df(corpus[1]), split=False), cuda
+    )
+    inputs = check.fused_inputs(idx, batch, c, seed=c)
+    n0 = k4.LAUNCHES
+    got = check.run_k4(idx, batch, inputs)
+    assert k4.LAUNCHES == n0 + 1 and got.shape == (b, idx.n_docs_padded)
+    want = check.run_k4(idx, batch, inputs, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare_final(got, want)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+
+
+def test_fused_kernel_keeps_inf_and_zero_weight_candidates(cuda, indexes):
+    """mag 0 with a positive score keeps +inf, 0/0 becomes 0, and a
+    zero-weight posting still makes its doc a candidate."""
+    idx = indexes[False]
+    sec = idx.body.fwd
+    ftT, fwT = sec.ftT.clone(), sec.fwT.clone()
+    d0 = int(torch.nonzero(ftT[0] >= 0)[0])
+    term = int(ftT[0, d0])
+    fwT[0, d0] = 0.0  # a zero-weight posting
+    mag_b = idx.mag_body.clone()
+    docs = torch.nonzero((ftT == term).any(0)).flatten()
+    mag_b[docs[docs != d0][:3]] = 0.0
+    tq = torch.full((8, 4), idx.n_words, dtype=torch.int32, device=cuda)
+    tq[0, 0] = term
+    qlen = torch.ones(8, device=cuda)
+    tp = torch.zeros((8, 1), device=cuda)
+    args = (idx.title.fwd.ftT, idx.title.fwd.fwT, ftT, fwT, idx.mag_title, mag_b,
+            idx.pagerankT[:1].contiguous(), tq, qlen, tp)
+    got = k4.fused_final_scores(*args)
+    want = k4.plain_fused_final_scores(*args)
+    rep = check.compare_final(got, want)
+    assert rep["ok"], rep
+    assert torch.isfinite(got[0, d0]) and bool((got[0] == float("inf")).any())
+
+
 def test_wrappers_reject_bad_inputs(cuda, indexes):
     idx = indexes[False]
     tq = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
@@ -146,3 +214,52 @@ def test_engine_on_cuda_matches_cpu(cuda, corpus):
         want = [(int(d), float(s)) for s, d in zip(sc[row], ic[row]) if np.isfinite(s)]
         assert _same_up_to_ties(got, want), queries[row]
         np.testing.assert_allclose([s for _, s in got], [s for _, s in want], rtol=1e-6)
+
+
+def _rank_rows(eng, parsed):
+    s, i = eng.rank(parsed)
+    return [
+        [(int(d), float(v)) for v, d in zip(s[r], i[r]) if np.isfinite(v)] for r in range(len(s))
+    ]
+
+
+def _engines_agree(eng_gpu, eng_cpu, parsed, queries):
+    for q, got, want in zip(queries, _rank_rows(eng_gpu, parsed), _rank_rows(eng_cpu, parsed)):
+        assert _same_up_to_ties(got, want), q
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in want], rtol=1e-6)
+
+
+def test_bm25_engine_on_cuda_matches_cpu(cuda, corpus):
+    """BM25 keyword batches on K1 over BM25 tiles; phrase batches on the
+    sparse lane (BM25 has no fused mixed lane)."""
+    db, snap = corpus
+    eng_gpu = QueryEngine(db, snapshot=snap, device=cuda, model=BM25Ranker())
+    eng_cpu = QueryEngine(db, snapshot=snap, device="cpu", model=BM25Ranker())
+    queries = make_queries(snap, db, 64, seed=5)
+    parsed = [parse_query(q) for q in queries]
+    k1.reset_launches()
+    k2.reset_launches()
+    _engines_agree(eng_gpu, eng_cpu, parsed, queries)
+    assert k1.LAUNCHES >= 1 and k2.LAUNCHES == 0
+    kw = [p for p in parsed if not p.phrase_hashes]
+    _engines_agree(eng_gpu, eng_cpu, kw, [q for q in queries if '"' not in q])
+
+
+def test_custom_blend_and_csr_on_cuda_match_cpu(cuda, corpus, monkeypatch):
+    """A custom blend ranks on K3 (phrases on the sparse lane); an index
+    truncated by a lowered DOC_TERM_CAP ranks through the CSR route."""
+    db, snap = corpus
+    queries = make_queries(snap, db, 64, seed=6)
+    parsed = [parse_query(q) for q in queries]
+    model = BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0)
+    k1.reset_launches()
+    _engines_agree(QueryEngine(db, snapshot=snap, device=cuda, model=model),
+                   QueryEngine(db, snapshot=snap, device="cpu", model=model), parsed, queries)
+    assert k1.LAUNCHES_1SEC >= 2 and k1.LAUNCHES == 0
+    nt = np.bincount(snap.body.doc_ids[: snap.body.n_postings], minlength=snap.n_docs)
+    monkeypatch.setattr(tdi, "DOC_TERM_CAP", int(np.sort(nt)[-4]))
+    eng_gpu = QueryEngine(db, snapshot=snap, device=cuda)
+    assert eng_gpu.index.dense_truncated
+    k1.reset_launches()
+    _engines_agree(eng_gpu, QueryEngine(db, snapshot=snap, device="cpu"), parsed, queries)
+    assert k1.LAUNCHES == 0 and k1.LAUNCHES_1SEC == 0

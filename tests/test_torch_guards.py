@@ -144,23 +144,29 @@ def test_ported_host_code_matches_original():
         "_hyd_sidecar_key", "_load_hyd_sidecar", "_save_hyd_sidecar", "_doc_record",
         "_topic_pagerank", "_keep", "hydrate_row", "hydrate_row_json",
         "prewarm_wordlist", "wordlist", "_fill_keyword_rows", "_hot_map",
-        "class_batching_pays", "commit_refresh",
+        "class_batching_pays", "commit_refresh", "_phrase_weights",
     ):
         assert _func_src(getattr(teng.QueryEngine, name)) == _func_src(
             getattr(jeng.QueryEngine, name)
         ), name
     assert teng.QueryEngine.PREWARM_BUDGET_BYTES == jeng.QueryEngine.PREWARM_BUDGET_BYTES
     assert inspect.getsource(teng._MultiRankHandle) == inspect.getsource(jeng._MultiRankHandle)
+    for name in ("_p_level", "_pow2", "_e_levels", "_cap_levels"):
+        assert _func_src(getattr(teng, name)) == _func_src(getattr(jeng, name)), name
     for name in ("_doc_sort_pays", "_doc_sort_perm", "_round_up", "_build_hot_cache",
                  "_build_posT", "build_posT_raw"):
         assert _func_src(getattr(tdi, name)) == _func_src(getattr(jdi, name)), name
+    from spaghettisearch_tpu.models import bm25 as jbm25
+    from spaghettisearch_tpu_torch.models import bm25 as tbm25
+
+    assert _func_src(tbm25.bm25_posting_weights) == _func_src(jbm25.bm25_posting_weights)
     for name in ("DOC_BLOCK", "DOC_TERM_CAP", "DOC_SORT_MIN_DOCS", "DOC_SORT_TC",
-                 "POS_T_BUDGET_BYTES", "POS_T_C_MAX",
+                 "POS_MAT_BUDGET_BYTES", "POS_T_BUDGET_BYTES", "POS_T_C_MAX",
                  "POS_T_INT16", "HOT_W_BUDGET_BYTES", "HOT_H_MAX", "HOT_MAX_DPAD",
                  "FWD_DEV_MAX_DPAD"):
         assert getattr(tdi, name) == getattr(jdi, name), name
     for name in ("WARM_B_MAX", "B_SMALL", "B_BIG", "B_PHRASE", "Q_BASE", "Q_CATCHALL",
-                 "P_LEVELS", "SEGREGATE_MIN_DOCS"):
+                 "P_LEVELS", "SEGREGATE_MIN_DOCS", "MATCHER_BP", "E_BASE"):
         assert getattr(teng, name) == getattr(jeng, name), name
 
 
@@ -174,7 +180,8 @@ def test_parse_query_matches_jax():
 
 @pytest.mark.parametrize("argv,msg", [
     (["--device", "cuda"], "CUDA is not available"),
-    (["--ranker", "bm25"], "bm25"),
+    # --ranker bm25 is served: it gets past the options to the device check
+    pytest.param(["--ranker", "bm25"], "CUDA is not available", id="argv1-bm25"),
     (["--meshShards", "2"], "meshShards"),
     (["--platform", "cpu"], "platform"),
 ])
@@ -185,6 +192,32 @@ def test_server_cli_refuses(argv, msg, monkeypatch):
     with pytest.raises(SystemExit) as e:
         cli.main(["--db", "/nonexistent-db"] + argv)
     assert msg in str(e.value)
+
+
+def test_server_cli_serves_bm25(tmp_path, monkeypatch):
+    """--ranker bm25 builds the engine on BM25Ranker and hands it to the
+    server (stubbed here, so nothing listens)."""
+    from corpus import build_corpus_db
+    from spaghettisearch_tpu_torch.cli import server as cli
+    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+
+    build_corpus_db(n_pages=12, seed=7, root=str(tmp_path / "db")).close()
+    served = []
+
+    class Server:
+        def __init__(self, engine, **kwargs):
+            served.append(engine)
+
+        def serve(self, port):
+            served.append(port)
+
+    monkeypatch.setattr(cli, "SearchServer", Server)
+    cli.main(["--db", str(tmp_path / "db"), "--device", "cpu", "--ranker", "bm25",
+              "--port", "0"])
+    engine, port = served
+    assert isinstance(engine.model, BM25Ranker) and port == 0
+    assert engine.query('"gradient"') == engine.query_batch(['"gradient"'])[0]
+    engine.db.close()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -201,12 +234,17 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_wrappers_raise_on_other_devices():
-    from spaghettisearch_tpu_torch.ops.kernels import membership, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
 
     meta = torch.empty((8, 4), dtype=torch.int32, device="meta")
     t = torch.empty((8, 512), dtype=torch.int32, device="meta")
     w = torch.empty((8, 512), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         membership.forward_scores_2sec(t, w, t, w, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        membership.forward_scores(t, w, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.fused_final_scores(t, w, t, w, w[0], w[0], w[:1], meta,
+                                 w[:, 0].clone(), w[:, :1].clone())
     with pytest.raises(ValueError, match="unsupported device"):
         mixed.mixed_scores_2sec(t, w, t, w, w, w, meta, meta[:, 0], meta, w[:, :4], meta[:, 0])

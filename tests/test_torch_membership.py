@@ -1,9 +1,10 @@
-"""The PyTorch port's K1 plain version and top-k against the JAX package:
-K1's plain version (the wrapper's CPU route) vs pallas_forward_scores_2sec
-in interpret mode and the XLA twin forward_section_scores, with the
-per-block q bound, the hot split, both count variants and the doc-sorted
-T bound; the port's exact_top_k vs the JAX one on ties, with and without
-doc_map.
+"""The PyTorch port's K1/K3 plain versions and top-k against the JAX
+package: K1's plain version (the wrapper's CPU route) vs
+pallas_forward_scores_2sec in interpret mode and the XLA twin
+forward_section_scores, with the per-block q bound, the hot split, both
+count variants and the doc-sorted T bound; K3's (forward_scores) vs
+pallas_forward_scores with qn-sorted rows and both count variants; the
+port's exact_top_k vs the JAX one on ties, with and without doc_map.
 
 Scores within rtol=1e-6 (the JAX package's own kernel-vs-twin bar,
 tests/test_scoring_paths.py); counts, candidacy masks and ids exact. Inputs
@@ -19,7 +20,10 @@ import torch
 
 from corpus import build_corpus_db
 from spaghettisearch_tpu.index.snapshot import build_snapshot
-from spaghettisearch_tpu.ops.kernels.membership import pallas_forward_scores_2sec
+from spaghettisearch_tpu.ops.kernels.membership import (
+    pallas_forward_scores,
+    pallas_forward_scores_2sec,
+)
 from spaghettisearch_tpu.ops.scoring import exact_top_k as jax_top_k
 from spaghettisearch_tpu.ops.scoring import forward_section_scores, mask_cold
 from spaghettisearch_tpu.retrieval.device_index import DeviceIndex as JaxIndex
@@ -134,3 +138,29 @@ def test_exact_top_k_ties_match_jax(route, with_map):
     assert ti.dtype == torch.int32
     assert np.array_equal(tv.numpy(), np.asarray(jv))
     assert np.array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("section", ["title", "body"])
+@pytest.mark.parametrize("which", ["crawl", "bench"])
+def test_one_section_plain_matches_pallas(crawl_snap, bench_snap, which, section, emit_counts):
+    """K3: rows sorted by descending qn, terms past qn are sentinels."""
+    snap = crawl_snap if which == "crawl" else bench_snap
+    jdx, tdx = _indexes(snap, doc_sort=which == "bench")
+    term_ids, qn, _ = _keyword_batch(snap.n_words, 16, 4, seed=11)
+    jsec, tsec = getattr(jdx, section), getattr(tdx, section)
+    want = pallas_forward_scores(
+        jsec.fwd.ftT, jsec.fwd.fwT, jnp.asarray(term_ids), jnp.asarray(qn),
+        doc_block=512, emit_counts=emit_counts, interpret=True,
+    )
+    got = k1.forward_scores(
+        tsec.fwd.ftT, tsec.fwd.fwT, torch.from_numpy(term_ids), torch.from_numpy(qn),
+        emit_counts=emit_counts,
+    )
+    np.testing.assert_allclose(got[0].numpy(), _np(want[0]), rtol=RTOL)
+    if emit_counts:
+        assert np.array_equal(got[1].numpy(), _np(want[1]))
+        assert got[1].sum() > 0
+    else:
+        assert got[1] is None and want[1] is None
+    assert (got[0].numpy() > 0).sum() > 0
