@@ -12,11 +12,19 @@ Phases (any failure raises and the script exits non-zero):
      build/smoke_corpus, its snapshot, and the device index;
   4. kernels vs their plain versions on the card at the main path's shapes,
      with CUDA-event times of both: K1 at B=128 with Q=4 and Q=32, both
-     count variants, the hot split and the doc-sorted bound; K2 at B=128,
-     Q=4, P=16 with int16 planes; K3 (one section) at B=128, Q=4 and Q=32,
-     both count variants, qn-sorted rows; K4 (fused) at B=128, Q=4 and
-     Q=32, topics off (C=1) and a seeded C=8 blend; score_queries_fused vs
-     the production keyword scorer per B=128 batch;
+     count variants, the hot split, the doc-sorted bound on and off; K2 at
+     B=128 (Q=4, P=16) and at the serving shape B=16 (Q=4, P=4), int16 and
+     f32 planes, both count variants; K1 and K2 on the adversarial batches
+     that stress their probe tables (check.ADVERSARIAL, B=128), and K2 on
+     log_full at B=16 too (with every_row, docs overflow K2's phrase-hit
+     log: the rescan path); each batch's probe tables, as the K1/K2 entry
+     points build them, equal to their plain build; K3 (one section) at
+     B=128, Q=4 and Q=32, both count variants, qn-sorted rows; K4 (fused)
+     at B=128, Q=4 and Q=32, topics off (C=1) and a seeded C=8 blend; each
+     kernel's bound from this run's data (bound_ms) and, for K1 and K3,
+     the time of torch.sparse.mm per section, the library call computing
+     the same function, held first against the plain version;
+     score_queries_fused vs the production keyword scorer per B=128 batch;
   5. serving: the port's SearchServer (micro-batching on) after warmup()
      answers POST /query, GET /query/{terms} and GET /wordlist/{prefix}
      from several client threads; every response must be 200 JSON, the
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -198,15 +207,11 @@ def check_ranked(queries: list[str], got: list[list[dict]], want: list[list[dict
     return n_hits
 
 
-def http_burst(engine, jobs: list[tuple[str, str]], clients: int) -> tuple[dict, float]:
-    """Serve `engine` through the port's SearchServer (micro-batching on)
-    and send `jobs` ((kind, arg): post / get / wordlist) from `clients`
-    threads. -> ({(kind, arg): (status, body, seconds)}, wall seconds)."""
-    from spaghettisearch_tpu_torch.serve.server import SearchServer
-
-    server = SearchServer(engine, batching=True)
-    host, port = server.start_background(port=0)
-    base = f"http://{host}:{port}"
+def send_jobs(base: str, jobs: list[tuple[str, str]], clients: int) -> tuple[dict, float]:
+    """Send `jobs` ((kind, arg): post / get / wordlist) to the server at
+    `base` from `clients` threads. Raises the first client error, and
+    unless every response is 200. -> ({(kind, arg): (status, body,
+    seconds)}, wall seconds)."""
     results: dict[tuple[str, str], tuple[int, object, float]] = {}
     lock = threading.Lock()
     errors: list[BaseException] = []
@@ -241,7 +246,6 @@ def http_burst(engine, jobs: list[tuple[str, str]], clients: int) -> tuple[dict,
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
-    server.shutdown()
     if errors:
         raise errors[0]
     if not all(v[0] == 200 for v in results.values()):
@@ -249,11 +253,129 @@ def http_burst(engine, jobs: list[tuple[str, str]], clients: int) -> tuple[dict,
     return results, wall
 
 
-def latency_line(results: dict, n: int, wall: float) -> str:
+def http_burst(engine, jobs: list[tuple[str, str]], clients: int) -> tuple[dict, float]:
+    """Serve `engine` through the port's SearchServer (micro-batching on)
+    and send_jobs(jobs, clients) to it."""
+    from spaghettisearch_tpu_torch.serve.server import SearchServer
+
+    server = SearchServer(engine, batching=True)
+    host, port = server.start_background(port=0)
+    try:
+        return send_jobs(f"http://{host}:{port}", jobs, clients)
+    finally:
+        server.shutdown()
+
+
+def latency_stats(results: dict, n: int, wall: float) -> dict:
+    """n requests answered in `wall` seconds: req/s, and the POST
+    latencies' p50 and p99 (host clock)."""
     lat = sorted(v[2] for k, v in results.items() if k[0] == "post")
-    return (f"{n} POST /query from {CLIENTS} clients in {wall:.3f}s = {n / wall:.1f} req/s; "
-            f"latency p50 {1e3 * lat[len(lat) // 2]:.2f} ms, "
-            f"p99 {1e3 * lat[int(len(lat) * 0.99)]:.2f} ms")
+    return {"requests": n, "req_per_s": n / wall, "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[int(len(lat) * 0.99)]}
+
+
+def latency_line(results: dict, n: int, wall: float) -> str:
+    st = latency_stats(results, n, wall)
+    return (f"{n} POST /query from {CLIENTS} clients in {wall:.3f}s = {st['req_per_s']:.1f} "
+            f"req/s; latency p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms")
+
+
+#: the H100 SXM's data-sheet rates at 700 W: memory bytes/s, and float32
+#: operations/s outside the tensor cores (the rate the probe's integer and
+#: f32 work is held to)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def row_terms(batch: dict, section: str, phrases: bool = False) -> list[set]:
+    """Per row, the distinct query terms a section's sweep matches: the
+    keyword columns below the row's active count (qnb for the body under
+    the hot split, qn otherwise), and with `phrases` the row's valid phrase
+    terms. Unknown words (n_words) match no slot and may stay."""
+    tq = batch["term_ids"].cpu().numpy()
+    cold = batch["split"] and section == "body"
+    active = (batch["qnb"] if cold else batch["qn"]).cpu().numpy()
+    rows = [{int(t) for t in tq[i, : active[i]] if t >= 0} for i in range(len(tq))]
+    if phrases:
+        ids, valid = batch["ph_ids"].cpu().numpy(), batch["ph_valid"].cpu().numpy()
+        for i, r in enumerate(rows):
+            r.update(int(t) for t, v in zip(ids[i], valid[i]) if v > 0 and t >= 0)
+    return rows
+
+
+def bound_ms(index, sweeps: list, b: int, n_out: int, extra_bytes: int = 0) -> tuple[float, str]:
+    """The least time the card could take for a membership call at batch b
+    on this run's data: the larger of its bytes over the memory rate and
+    its operations over the peak rate. `sweeps` holds (ftT, row_terms) per
+    section swept. Bytes: the term id (4 B) of every real slot, the weight
+    (4 B) of each slot whose term some row asks for, each of the n_out f32
+    [b, D] outputs written once, and extra_bytes. Operations: one
+    membership test per real slot, one multiply-add (2) per (slot, row)
+    match. -> (ms, "bytes" or "operations")."""
+    import torch
+
+    slots = hits = pairs = 0
+    for ftT, rows in sweeps:
+        real = ftT[ftT >= 0].long()
+        slots += real.numel()
+        occ = torch.bincount(real, minlength=index.n_words + 1).cpu().numpy()
+        hits += int(occ[sorted(set().union(*rows))].sum())
+        pairs += sum(int(occ[sorted(r)].sum()) for r in rows)
+    nbytes = 4 * slots + 4 * hits + n_out * b * index.n_docs_padded * 4 + extra_bytes
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * (slots + 2 * pairs) / PEAK_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def library_calls(idx, n_words: int, batch: dict, want: list,
+                  sections=("title", "body")) -> list:
+    """The operands of torch.sparse.mm(W, M) per section, the one PyTorch
+    call that computes the membership scores (and counts, with a W of
+    ones): W the CSR [D, V+1] doc-term weight matrix from the forward
+    tiles (each doc's columns sorted), M the dense [V+1, B]
+    query-multiplicity matrix of the columns the section's sweep reads
+    (row_terms' rule); sparse.mm(W, M)[d, b] is score[b, d]. Built outside
+    the timed region. `want` holds the plain version's (score, count or
+    None) per section: each call's result is held against it (scores
+    within check.RTOL, counts exact) before it is timed, and a
+    disagreement raises."""
+    import torch
+
+    from spaghettisearch_tpu_torch.ops.kernels import check
+
+    b, q = batch["term_ids"].shape
+    big = torch.iinfo(torch.int32).max
+    calls = []
+    for sec, (w_score, w_count) in zip(sections, want):
+        fwd = getattr(idx, sec).fwd
+        ft, order = torch.where(fwd.ftT >= 0, fwd.ftT, big).t().sort(dim=1)
+        fw = fwd.fwT.t().gather(1, order)
+        real = ft != big
+        crow = torch.zeros(ft.shape[0] + 1, dtype=torch.int64, device=ft.device)
+        crow[1:] = real.sum(1).cumsum(0)
+        cold = batch["split"] and sec == "body"
+        active = batch["qnb"] if cold else batch["qn"]
+        col = torch.arange(q, device=ft.device)[None, :]
+        tq = torch.where(col < active[:, None], batch["term_ids"].long(), n_words)
+        m = torch.zeros((n_words + 1, b), dtype=torch.float32, device=ft.device)
+        m.index_put_((tq.clamp(min=0, max=n_words).flatten(),
+                      torch.arange(b, device=ft.device).repeat_interleave(q)),
+                     torch.ones(b * q, device=ft.device), accumulate=True)
+        m[n_words] = 0.0  # unknown words and inactive columns
+        for w, ref, what in ((fw[real], w_score, "scores"),
+                             (torch.ones_like(fw[real]), w_count, "counts")):
+            if ref is None:
+                continue
+            mat = torch.sparse_csr_tensor(crow, ft[real].long(), w, size=(ft.shape[0], n_words + 1))
+            got = torch.sparse.mm(mat, m).t()
+            same = (torch.equal(got, ref) if what == "counts"
+                    else bool(torch.isclose(got, ref, rtol=check.RTOL, atol=0.0).all()))
+            if not same:
+                err = float((got - ref).abs().max())
+                raise RuntimeError(f"torch.sparse.mm {sec} {what} differ from the plain "
+                                   f"version (max abs err {err})")
+            calls.append((mat, m))
+    return calls
 
 
 def build_all() -> list:
@@ -292,7 +414,7 @@ def main() -> int:
     from spaghettisearch_tpu_torch.models.blended import BlendedRanker
     from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
     from spaghettisearch_tpu_torch.ops import scoring
-    from spaghettisearch_tpu_torch.ops.kernels import check
+    from spaghettisearch_tpu_torch.ops.kernels import check, mixed
     from spaghettisearch_tpu_torch.retrieval import device_index
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
 
@@ -344,6 +466,11 @@ def main() -> int:
     records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": []}
     main_counts = idx.has_zero_weight  # the engine's emit_counts
     doc_sort = idx.body.tmax_blocks is not None
+    idx32 = dataclasses.replace(idx, **{  # the f32 planes a pathological corpus keeps
+        sec: dataclasses.replace(getattr(idx, sec),
+                                 posT=mixed.deq_posT(getattr(idx, sec).posT).contiguous())
+        for sec in ("title", "body")
+    })
 
     def held(kname: str, rep: dict, what: str) -> None:
         say(f"# {what}: {rep}")
@@ -351,21 +478,56 @@ def main() -> int:
             raise RuntimeError(f"{kname} kernel disagrees with its plain version: {rep}")
         records[kname].append(rep)
 
-    for q in (4, 32):
-        batch = check.to_device(check.keyword_batch(idx, 128, q, seed=q, df=df), "cuda")
+    def hold_tables(batch, what: str) -> None:
+        for phrases in (False, True) if "ph_ids" in batch else (False,):
+            if not check.tables_agree(batch, phrases):
+                raise RuntimeError(f"the probe tables of {what} (phrases={phrases}) differ "
+                                   "from their plain version")
+        say(f"# probe tables {what}: equal to the plain build")
+
+    def hold_k1(batch, what: str) -> None:
+        hold_tables(batch, what)
         for emit in (True, False):
-            got = check.run_k1(idx, batch, emit, body_tmax=doc_sort)
-            want = check.run_k1(idx, batch, emit, body_tmax=doc_sort, plain=True)
-            held("membership", check.compare(got, want),
-                 f"K1 B=128 Q={q} counts={emit} split={batch['split']} tmax={doc_sort}")
+            for tmax in sorted({doc_sort, False}):
+                got = check.run_k1(idx, batch, emit, body_tmax=tmax)
+                want = check.run_k1(idx, batch, emit, body_tmax=tmax, plain=True)
+                held("membership", check.compare(got, want),
+                     f"K1 {what} counts={emit} split={batch['split']} tmax={tmax}")
+
+    def hold_k2(index, batch, what: str, emits=(True, False)) -> None:
+        hold_tables(batch, what)
+        for emit in emits:
+            got = check.run_k2(index, batch, emit)
+            want = check.run_k2(index, batch, emit, plain=True)
+            held("mixed", check.compare(got, want),
+                 f"K2 {what} counts={emit} planes={index.body.posT.dtype}")
+
+    for q in (4, 32):
+        hold_k1(check.to_device(check.keyword_batch(idx, 128, q, seed=q, df=df), "cuda"),
+                f"B=128 Q={q}")
     mbatch = check.to_device(
         check.mixed_batch(idx, 128, 4, 16, seed=1, df=df, snap=snap), "cuda"
     )
-    for emit in (True, False):
-        got = check.run_k2(idx, mbatch, emit)
-        want = check.run_k2(idx, mbatch, emit, plain=True)
-        held("mixed", check.compare(got, want),
-             f"K2 B=128 Q=4 P=16 counts={emit} planes={idx.body.posT.dtype}")
+    mbatch16 = check.to_device(  # the serving shape: B=16, P=P_BASE
+        check.mixed_batch(idx, 16, 4, 4, seed=2, df=df, snap=snap), "cuda"
+    )
+    for index in (idx, idx32):
+        hold_k2(index, mbatch, "B=128 Q=4 P=16")
+        hold_k2(index, mbatch16, "B=16 Q=4 P=4")
+    for kind in check.ADVERSARIAL:  # batches that stress the probe tables
+        batch = check.to_device(
+            check.adversarial_batch(idx, kind, seed=7, df=df, snap=snap, b=128), "cuda"
+        )
+        b, q = batch["term_ids"].shape
+        hold_k1(batch, f"adversarial {kind} B={b} Q={q}")
+        hold_k2(idx, batch, f"adversarial {kind} B={b} Q={q} P=4")
+    # every_row and log_full at B=128 (above) and log_full at the serving
+    # shape give docs more phrase hits in a section than K2's log keeps:
+    # the rescan path
+    full16 = check.to_device(
+        check.adversarial_batch(idx, "log_full", seed=8, df=df, snap=snap, b=16), "cuda"
+    )
+    hold_k2(idx, full16, "adversarial log_full B=16 Q=4 P=4")
     for q in (4, 32):
         batch = check.to_device(check.keyword_batch(idx, 128, q, seed=q + 1, df=df, split=False),
                                 "cuda")
@@ -395,6 +557,11 @@ def main() -> int:
             check.time_ms(lambda: check.run_k2(idx, mbatch, main_counts, plain=True), iters=3, warmup=1),
         ),
     }
+    k2_b16 = (
+        check.time_ms(lambda: check.run_k2(idx, mbatch16, main_counts)),
+        check.time_ms(lambda: check.run_k2(idx, mbatch16, main_counts, plain=True), iters=3,
+                      warmup=1),
+    )
     variants = {}  # K3 and K4 per variant at B=128, Q=4, qn-sorted rows
     for section in ("title", "body"):
         for emit in (True, False):
@@ -416,6 +583,36 @@ def main() -> int:
     times["fused"] = variants["K4 C=1"]
     for kname, (ms, plain_ms) in times.items():
         say(f"# {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per B=128 call ({smi})")
+    say(f"# mixed B=16 Q=4 P=4 (the serving shape): kernel {k2_b16[0]:.4f} ms, plain "
+        f"{k2_b16[1]:.4f} ms per call ({smi})")
+    k1_want = check.run_k1(idx, kbatch, main_counts, doc_sort, plain=True)
+    lib_k1 = library_calls(idx, snap.n_words, kbatch, [k1_want[:2], k1_want[2:]])
+    lib_k3 = library_calls(idx, snap.n_words, cbatch,
+                           [check.run_k3(idx, cbatch, True, "body", plain=True)],
+                           sections=("body",))
+    say("# library calls equal the plain versions (K1: title + body; K3: body, with counts)")
+    library = {  # one PyTorch call per section for the same function (yardstick only)
+        "membership": check.time_ms(lambda: [torch.sparse.mm(w, m) for w, m in lib_k1]),
+        "membership_1sec": check.time_ms(lambda: [torch.sparse.mm(w, m) for w, m in lib_k3]),
+        "mixed": None,  # no single call: phrase chains over position planes
+        "fused": None,  # no single call: membership, cosine normalisation and blend in one
+    }
+    secs = ("title", "body")
+    n_k = 4 if main_counts else 2
+
+    def sweeps(batch, sections=secs, phrases=False):
+        return [(getattr(idx, s).fwd.ftT, row_terms(batch, s, phrases)) for s in sections]
+
+    bounds = {
+        "membership": bound_ms(idx, sweeps(kbatch), 128, n_k),
+        "mixed": bound_ms(idx, sweeps(mbatch, phrases=True), 128, n_k),
+        "membership_1sec": bound_ms(idx, sweeps(cbatch, ("body",)), 128, 2),
+        "fused": bound_ms(idx, sweeps(cbatch), 128, 1, extra_bytes=4 * idx.n_docs_padded * 3),
+    }
+    k2_b16_bound = bound_ms(idx, sweeps(mbatch16, phrases=True), 16, n_k)
+    say(f"# bounds (ms, what sets them; 4 B per real slot, 4 B per slot a row asks for, "
+        f"each output once, over 3.35 TB/s): {bounds}; mixed B=16 {k2_b16_bound}")
+    say(f"# library (torch.sparse.mm per section): {library}")
     qlen = kbatch["qn"].clamp(min=1).to(torch.float32)
     tp0 = torch.zeros((128, idx.n_categories), device="cuda")
     model = engine.model
@@ -582,6 +779,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in records[kname]),
             "ms": times[kname][0],
             "plain_ms": times[kname][1],
+            "bound_ms": bounds[kname][0],
+            "bound_by": bounds[kname][1],
+            "library_ms": library[kname],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -19,8 +19,7 @@ import sys
 
 import torch
 
-from spaghettisearch_tpu.store.tables import Database
-
+from ..store.tables import Database
 from ..retrieval.engine import QueryEngine
 from ..serve.server import SearchServer
 
@@ -120,7 +119,7 @@ def main(argv: list[str] | None = None) -> None:
         engine.prewarm_wordlist()
         print(f"Warmup done in {_time.perf_counter() - t0:.1f}s "
               f"({built} hydration records prebuilt)")
-        from spaghettisearch_tpu.utils.timing import TRACER
+        from ..utils.timing import TRACER
 
         TRACER.reset()  # /stats should reflect live traffic, not warmup
     print(f"\nServer is running on port {args.port}")

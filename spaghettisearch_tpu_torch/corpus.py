@@ -1,7 +1,7 @@
 """Seeded benchmark-corpus writer that needs neither lxml nor jax.
 
-Writes, through spaghettisearch_tpu.store.tables.Database, the rows the JAX
-package's indexer (spaghettisearch_tpu/index/indexer.py index_page) writes
+Writes, through this package's store.tables.Database (a copy of the JAX
+package's), the rows the JAX package's indexer (spaghettisearch_tpu/index/indexer.py index_page) writes
 for the pages of the benchmark corpus (bench.py build_bench_corpus): the
 same seeded draws in the same order —
 
@@ -36,12 +36,11 @@ from datetime import datetime, timezone
 
 import numpy as np
 
-from spaghettisearch_tpu.config import PAGERANK_DAMPING
-from spaghettisearch_tpu.store.docinfo import DocInfo
-from spaghettisearch_tpu.store.tables import Database
-from spaghettisearch_tpu.text.laundry import laundry
-from spaghettisearch_tpu.utils.hashing import md5_hex
-
+from .config import PAGERANK_DAMPING
+from .store.docinfo import DocInfo
+from .store.tables import Database
+from .text.laundry import laundry
+from .utils.hashing import md5_hex
 from .ops.weighting import update_term_weights
 
 BASE_URL = "http://bench.local"

@@ -7,6 +7,8 @@
 //   - a section adds the sum of its phrase-term weights only when every
 //     valid phrase term occurs in that section AND the positional chain
 //     holds: some position p0 of term 0 with term i at p0 + i;
+//   - an invalid phrase slot (ph_valid <= 0) is found, weighs 0 and has no
+//     chain constraint; a row whose slot 0 is invalid holds no phrase;
 //   - a 1-term phrase matches wherever the term occurs (-100 included);
 //   - a phrase match alone makes the doc a candidate (the title count gets
 //     the flag when counts are emitted).
@@ -15,29 +17,48 @@
 // int16 values are dequantized exactly like the TPU kernel's _deq_posT, so
 // every compare sees the same f32 values as the plain version.
 //
-// What bounds it on the H100: the keyword sweep (as K1); the phrase stage
-// costs (Tt + Tb) slot loads per (phrase row, phrase term, doc) plus C^2
-// position compares where a section holds every term.
+// What bounds it on the H100: bytes, as K1 (the term ids of the real
+// slots of both sections, read once, a weight only where a row asks for
+// the slot's term, and the [B, D] outputs, written once); the position
+// planes are read only where a section holds every term of a phrase.
 //
-// Design: the TPU kernel matches phrases as dense one-hot selects over whole
-// [T, Db] tiles because Mosaic has no gathers. Here a thread owns one doc and
-// FINDS each phrase term's slot directly (a doc's slots hold distinct terms,
-// real slots first), so absent terms cost one scan and end the section early;
-// the anchor term's <= C positions are read once and the chain is checked
-// against each later term's positions. Keyword results are written first and
-// the rare phrase matches are added in place by the owning thread (no races:
-// each output element has one owner). Rows are sorted phrase-rows-first, so
-// row tiles without phrases skip the phrase stage.
-#include "common.cuh"
+// Design: one probe sweep per section (csrc/probe.cuh). The table build
+// puts each phrase row's valid phrase terms into the same table as the
+// keyword terms, as entries flagged with (row, phrase position p); a term
+// at two positions of a row has two entries. The sweep adds keyword hits
+// to the row sums and logs each phrase hit (entry, slot) in a per-thread
+// log in shared memory. After the sweep, each logged hit of a row's
+// position 0 starts that row's check: the row's other positions are looked
+// up in the log, and only when every valid position was found are the
+// positions read for the chain and the weights summed (in phrase order, as
+// the plain version sums them). So there is one pass over the slots, and
+// no per-term rescan. A doc with more phrase hits in a section than the
+// log holds (kLog, 16) is checked by rescanning its slots once per phrase
+// row of the tile, the same probe again: correct, slower, rare at 16 (a
+// log of 8 made the B=128, P=16 batch 2.5x slower on the H100: too many
+// docs rescanned). The anchor and position lists of the
+// chain check live in registers (fully unrolled over the 32 planes, NaN
+// past C), not in local memory. Phrase matches are added to the owner's shared-memory sums
+// before the store; the body's candidacy flag goes to the title count the
+// same thread stored, unless the title already matched. Shared memory per
+// block of 64 rows with counts elided: 32 KB of sums, the 4 KB filter, the
+// table (8 B an entry: 10 KB at Q=4, P=16), the 8 KB log, 1.25 KB of
+// flags: 4 blocks per SM.
+#include "probe.cuh"
 
 namespace ss {
 
 constexpr int kPMax = 16;  // engine P_LEVELS[-1]
 constexpr int kCMax = 32;  // device_index POS_T_C_MAX
+constexpr int kOkWords = probe::kRowsMax / 32;
+constexpr int kLog = 16;  // phrase hits a thread logs per section
+// Words of the per-thread log region: the log, or a rescan's slots.
+constexpr int kLogWords = kLog > kPMax / 2 ? kLog : kPMax / 2;
 constexpr float kPosRealMax = 8388608.0f;  // 2^23 (mixed.py POS_REAL_MAX)
 constexpr float kPosBig = 16777216.0f;     // 2^24 (mixed.py POS_BIG)
 
-__device__ inline float load_pos(const void* posT, bool pos16, size_t i) {
+__device__ __forceinline__ float load_pos(const void* posT, bool pos16,
+                                          size_t i) {
   if (pos16) {
     const float x = (float)__ldg(static_cast<const int16_t*>(posT) + i);
     return x >= 32767.0f ? kPosBig : x;
@@ -45,159 +66,251 @@ __device__ inline float load_pos(const void* posT, bool pos16, size_t i) {
   return __ldg(static_cast<const float*>(posT) + i);
 }
 
-// Slot of term `id` in this doc's column, -1 when absent.
-__device__ inline int find_slot(const int* __restrict__ ftT, int T, int D,
-                                int d, int id) {
-  for (int j = 0; j < T; ++j) {
-    const int f = __ldg(ftT + (size_t)j * D + d);
-    if (f == id) return j;
-    if (f < 0) return -1;  // pads follow the real slots
+// Where a check finds the slot at which this doc holds phrase position p
+// of row k (-1: absent). From the sweep's log of phrase hits:
+struct LogSlots {
+  const uint32_t* log;  // this thread's column
+  int n;
+  const int* s_pay;
+  int k;
+  __device__ int operator()(int p) const {
+    for (int i = 0; i < n; ++i) {
+      const uint32_t v = log[i * probe::kDocs];
+      const int q = s_pay[v >> 16];
+      if ((q >> 16) == k && (q & 0x7fff) == p) return (int)(v & 0xffffu);
+    }
+    return -1;
   }
-  return -1;
+};
+
+// From a rescan of the doc's slots (after the log overflowed): two 16-bit
+// slots a word, in this thread's column of the log region.
+struct ArraySlots {
+  uint32_t* col;
+  __device__ int operator()(int p) const {
+    const uint32_t w = col[(p >> 1) * probe::kDocs];
+    return (int)(short)(p & 1 ? w >> 16 : w & 0xffffu);
+  }
+  __device__ void clear() const {
+    for (int i = 0; i < kPMax / 2; ++i) col[i * probe::kDocs] = 0xffffffffu;
+  }
+  __device__ void set(int p, int j) const {
+    uint32_t* w = col + (p >> 1) * probe::kDocs;
+    *w = p & 1 ? (*w & 0xffffu) | ((uint32_t)j << 16) : (*w & 0xffff0000u) | (uint32_t)j;
+  }
+};
+
+// The positional chain of one (row, doc, section) whose every required
+// position p is at slot_of(p): some real position a of the term at p = 0
+// such that each other required term occurs at a + p.
+template <class Slots>
+__device__ inline bool chain_holds(const void* posT, bool pos16, int T, int C,
+                                   int D, int d, const Slots& slot_of, int req) {
+  float anc[kCMax];
+  uint32_t hit = 0;
+  const size_t s0 = (size_t)slot_of(0);
+#pragma unroll
+  for (int c = 0; c < kCMax; ++c) {
+    anc[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + s0) * D + d) : kPosBig;
+    if (anc[c] < kPosRealMax) hit |= 1u << c;
+  }
+  for (int m = req & ~1; m != 0 && hit != 0; m &= m - 1) {
+    const int p = __ffs(m) - 1;
+    const size_t sp = (size_t)slot_of(p);
+    float pos[kCMax];
+#pragma unroll
+    for (int c = 0; c < kCMax; ++c)
+      pos[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + sp) * D + d)
+                     : __int_as_float(0x7fffffff);  // NaN: equals nothing
+    const float fp = (float)p;
+    uint32_t found = 0;
+#pragma unroll
+    for (int c0 = 0; c0 < kCMax; ++c0) {
+      const float target = anc[c0] + fp;
+      bool m0 = false;
+#pragma unroll
+      for (int c = 0; c < kCMax; ++c) m0 |= (pos[c] == target);
+      found |= (uint32_t)m0 << c0;
+    }
+    hit &= found;
+  }
+  return hit != 0;
 }
 
-// One section's phrase match for one (row, doc): true when every valid term
-// is present and the chain holds; *sum_w gets the terms' summed weights.
-__device__ bool phrase_section(const int* __restrict__ ftT,
-                               const float* __restrict__ fwT,
-                               const void* posT, bool pos16, int T, int C,
-                               int D, int d, const int* ph, const float* phv,
-                               int pnb, float* sum_w) {
-  int slot[kPMax];
-  float s = 0.f;
-  for (int p = 0; p < pnb; ++p) {
-    if (!(phv[p] > 0.f)) {
-      slot[p] = -1;  // invalid slot: found, weight 0, no chain constraint
-      continue;
+// Per-section inputs of the phrase stage.
+struct Section {
+  const int* ftT;
+  const float* fwT;
+  const void* posT;
+  bool pos16;
+  int T;
+  int C;
+  int bound;
+};
+
+// Check row k of this thread's doc in one section and fold a match into
+// the row's sums.
+template <bool kCounts, class Slots>
+__device__ inline void fold_match(const Section& sec, bool title, int k,
+                                  int req, int D, int d, int r0,
+                                  const Slots& slot_of, uint32_t* okbits,
+                                  float* acc_s, float* acc_c, float* tc) {
+  using probe::kDocs;
+  for (int m = req; m != 0; m &= m - 1)
+    if (slot_of(__ffs(m) - 1) < 0) return;  // a term is absent
+  if (!chain_holds(sec.posT, sec.pos16, sec.T, sec.C, D, d, slot_of, req)) return;
+  float sum = 0.f;
+  for (int m = req; m != 0; m &= m - 1)
+    sum += __ldg(sec.fwT + (size_t)slot_of(__ffs(m) - 1) * D + d);
+  acc_s[k * kDocs] += sum;
+  uint32_t* ok = okbits + (k >> 5) * kDocs;
+  const uint32_t bit = 1u << (k & 31);
+  if (title) {
+    if (kCounts) acc_c[k * kDocs] += 1.f;
+    *ok |= bit;
+  } else if (kCounts && !(*ok & bit)) {
+    tc[(size_t)(r0 + k) * D + d] += 1.f;  // stored by this thread already
+  }
+}
+
+// The phrase stage of one section for this thread's doc, after its sweep.
+// A rescan after an overflow keeps its slots where the log was.
+template <bool kCounts>
+__device__ inline void phrase_stage(const Section& sec, bool title, int D,
+                                    int d, int r0, int R, const int* s_term,
+                                    const int* s_pay, const uint32_t* s_filter,
+                                    int n,
+                                    const int* s_req,
+                                    const probe::PhraseLog& plog,
+                                    uint32_t* okbits, float* acc_s,
+                                    float* acc_c, float* tc) {
+  using namespace probe;
+  if (!plog.overflow) {
+    for (int i = 0; i < plog.n; ++i) {
+      const int q = s_pay[plog.log[i * kDocs] >> 16];
+      if ((q & 0x7fff) != 0) continue;  // position 0 starts a row's check
+      const int k = q >> 16;
+      const int req = s_req[k];
+      if (req & 1)
+        fold_match<kCounts>(sec, title, k, req, D, d, r0,
+                            LogSlots{plog.log, plog.n, s_pay, k}, okbits, acc_s,
+                            acc_c, tc);
     }
-    const int t = find_slot(ftT, T, D, d, ph[p]);
-    if (t < 0) return false;
-    s += __ldg(fwT + (size_t)t * D + d);
-    slot[p] = t;
+    return;
   }
-  *sum_w = s;
-  float anchor[kCMax];
-  bool hit[kCMax];
-  const int t0 = slot[0];  // term 0 is valid: the caller checked phv[0]
-  for (int c = 0; c < C; ++c) {
-    anchor[c] = load_pos(posT, pos16, ((size_t)c * T + t0) * D + d);
-    hit[c] = anchor[c] < kPosRealMax;
-  }
-  float pos[kCMax];
-  for (int p = 1; p < pnb; ++p) {
-    if (slot[p] < 0) continue;
-    for (int c = 0; c < C; ++c)
-      pos[c] = load_pos(posT, pos16, ((size_t)c * T + slot[p]) * D + d);
-    const float fp = (float)p;
-    for (int c0 = 0; c0 < C; ++c0) {
-      if (!hit[c0]) continue;
-      const float target = anchor[c0] + fp;
-      bool m = false;
-      for (int c = 0; c < C; ++c) m |= (pos[c] == target);
-      hit[c0] = m;
+  const ArraySlots slots{plog.log};
+  for (int k = 0; k < R; ++k) {  // the log overflowed: rescan per phrase row
+    const int req = s_req[k];
+    if (!(req & 1)) continue;
+    slots.clear();
+    for (int j = 0; j < sec.bound; ++j) {
+      const int f = __ldg(sec.ftT + (size_t)j * D + d);
+      if (f < 0) break;
+      if (!filter_test(s_filter, f)) continue;
+      for (int e = lower_bound(s_term, n, f); e < n && s_term[e] == f; ++e) {
+        const int q = s_pay[e];
+        if ((q & kPhraseFlag) && (q >> 16) == k) slots.set(q & 0x7fff, j);
+      }
     }
+    fold_match<kCounts>(sec, title, k, req, D, d, r0, slots, okbits, acc_s,
+                        acc_c, tc);
   }
-  bool any = false;
-  for (int c = 0; c < C; ++c) any |= hit[c];
-  return any;
 }
 
 template <bool kCounts>
-__global__ void __launch_bounds__(kDocsPerBlock)
+__global__ void __launch_bounds__(probe::kDocs)
 mixed_kernel(const int* __restrict__ title_ftT,
              const float* __restrict__ title_fwT, int Tt,
              const int* __restrict__ body_ftT,
              const float* __restrict__ body_fwT, int Tb, int D,
              const void* title_posT, int Ct, int tpos16,
              const void* body_posT, int Cb, int bpos16,
-             const int* __restrict__ tq, const int* __restrict__ btq, int B,
-             int Q, const int* __restrict__ qn_blk,
-             const int* __restrict__ qnb_blk, const int* __restrict__ ph_ids,
-             const float* __restrict__ ph_valid, int P,
-             const int* __restrict__ pn_blk, float* __restrict__ ts,
-             float* __restrict__ tc, float* __restrict__ bs,
-             float* __restrict__ bc) {
-  __shared__ int s_tq[kRowTile * kQMax];
-  __shared__ int s_btq[kRowTile * kQMax];
-  __shared__ int s_ph[kRowTile * kPMax];
-  __shared__ float s_phv[kRowTile * kPMax];
-  __shared__ int s_qn[kSubs];
-  __shared__ int s_qnb[kSubs];
-  __shared__ int s_pn[kSubs];
-  const int r0 = blockIdx.y * kRowTile;
-  load_rows_i32(s_tq, tq, r0, B, Q);
-  load_rows_i32(s_btq, btq, r0, B, Q);
-  load_rows_i32(s_ph, ph_ids, r0, B, P);
-  for (int i = threadIdx.x; i < kRowTile * P; i += blockDim.x) {
-    const int row = r0 + i / P;
-    s_phv[i] = row < B ? ph_valid[(size_t)row * P + i % P] : 0.f;
-  }
-  load_bounds(s_qn, qn_blk, r0, B, Q);
-  load_bounds(s_qnb, qnb_blk, r0, B, Q);
-  load_bounds(s_pn, pn_blk, r0, B, P);
-  __syncthreads();
+             const int* __restrict__ tbl_term, const int* __restrict__ tbl_pay,
+             int N, int R, int B, const int* __restrict__ ph_req,
+             float* __restrict__ ts, float* __restrict__ tc,
+             float* __restrict__ bs, float* __restrict__ bc) {
+  using namespace probe;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc_s = reinterpret_cast<float*>(smem) + threadIdx.x;
+  float* acc_c = acc_s + R * kDocs;
+  uint32_t* s_filter =
+      reinterpret_cast<uint32_t*>(smem + (size_t)R * kDocs * 4 * (kCounts ? 2 : 1));
+  int* s_term = reinterpret_cast<int*>(s_filter + kFilterWords);
+  int* s_pay = s_term + N;
+  uint32_t* s_log = reinterpret_cast<uint32_t*>(s_pay + N);
+  uint32_t* s_ok = s_log + (size_t)kLogWords * kDocs;
+  int* s_req = reinterpret_cast<int*>(s_ok + kOkWords * kDocs);
 
-  const int d = blockIdx.x * kDocsPerBlock + threadIdx.x;
+  const int tile = blockIdx.x;
+  const int r0 = tile * R;
+  const int d = blockIdx.y * kDocs + threadIdx.x;
   const bool live = d < D;
-  {
-    float score[kRowTile];
-    float count[kRowTile];
-    section_sweep<kCounts>(title_ftT, title_fwT, Tt, D, d, live, s_tq, s_qn,
-                           Q, score, count);
-    store_rows<kCounts>(ts, tc, r0, B, D, d, live, score, count);
-    section_sweep<kCounts>(body_ftT, body_fwT, Tb, D, d, live, s_btq, s_qnb,
-                           Q, score, count);
-    store_rows<kCounts>(bs, bc, r0, B, D, d, live, score, count);
-  }
-  if (!live) return;
-  for (int s = 0; s < kSubs; ++s) {
-    const int pnb = s_pn[s];
-    if (pnb == 0) continue;
-    for (int r = 0; r < kSub; ++r) {
-      const int row = r0 + s * kSub + r;
-      const int* ph = s_ph + (s * kSub + r) * P;
-      const float* phv = s_phv + (s * kSub + r) * P;
-      if (row >= B || !(phv[0] > 0.f)) continue;  // row holds no phrase
-      float sum_tw = 0.f, sum_bw = 0.f;
-      const bool t_ok = phrase_section(title_ftT, title_fwT, title_posT,
-                                       tpos16 != 0, Tt, Ct, D, d, ph, phv, pnb,
-                                       &sum_tw);
-      const bool b_ok = phrase_section(body_ftT, body_fwT, body_posT,
-                                       bpos16 != 0, Tb, Cb, D, d, ph, phv, pnb,
-                                       &sum_bw);
-      const size_t o = (size_t)row * D + d;
-      if (t_ok) ts[o] += sum_tw;
-      if (b_ok) bs[o] += sum_bw;
-      if (kCounts && (t_ok || b_ok)) tc[o] += 1.f;
+  for (int i = threadIdx.x; i < R; i += blockDim.x)
+    s_req[i] = r0 + i < B ? __ldg(ph_req + r0 + i) : 0;  // seen after the
+  for (int w = 0; w < kOkWords; ++w) s_ok[w * kDocs + threadIdx.x] = 0u;  // next barrier
+  uint32_t* okbits = s_ok + threadIdx.x;
+
+  const Section secs[2] = {
+      {title_ftT, title_fwT, title_posT, tpos16 != 0, Tt, Ct, Tt},
+      {body_ftT, body_fwT, body_posT, bpos16 != 0, Tb, Cb, Tb},
+  };
+  float* outs[2][2] = {{ts, tc}, {bs, bc}};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const Section& sec = secs[s];
+    const size_t off = (size_t)(s * gridDim.x + tile) * N;
+    const int n = stage_table(s_term, s_pay, s_filter, tbl_term + off,
+                              tbl_pay + off, N);
+    zero_rows(acc_s, R);
+    if (kCounts) zero_rows(acc_c, R);
+    PhraseLog plog{s_log + threadIdx.x, kLog, 0, false};
+    sweep<kCounts, true>(sec.ftT, sec.fwT, sec.bound, D, d, live, s_term,
+                         s_pay, s_filter, n, acc_s, acc_c, &plog);
+    if (live) {
+      phrase_stage<kCounts>(sec, s == 0, D, d, r0, R, s_term, s_pay, s_filter,
+                            n, s_req, plog, okbits, acc_s, acc_c, tc);
+      store_rows(outs[s][0], acc_s, r0, R, B, D, d);
+      if (kCounts) store_rows(outs[s][1], acc_c, r0, R, B, D, d);
     }
   }
 }
 
 }  // namespace ss
 
+// K2: build the batch's probe tables (keyword and phrase entries) into
+// `tables` (probe.cuh Tables layout), then sweep.
 extern "C" int ss_mixed(const int* title_ftT, const float* title_fwT, int Tt,
                         const int* body_ftT, const float* body_fwT, int Tb,
                         int D, const void* title_posT, int Ct, int tpos16,
                         const void* body_posT, int Cb, int bpos16,
-                        const int* tq, const int* btq, int B, int Q,
-                        const int* qn_blk, const int* qnb_blk,
-                        const int* ph_ids, const float* ph_valid, int P,
-                        const int* pn_blk, float* ts, float* tc, float* bs,
-                        float* bc, void* stream) {
-  const dim3 grid((D + ss::kDocsPerBlock - 1) / ss::kDocsPerBlock,
-                  (B + ss::kRowTile - 1) / ss::kRowTile);
-  const dim3 block(ss::kDocsPerBlock);
+                        const int* tq, int B, int Q, const int* qn,
+                        const int* qnb, const int* ph_ids,
+                        const float* ph_valid, int P, int* tables, int R,
+                        int N, float* ts, float* tc, float* bs, float* bc,
+                        void* stream) {
+  using ss::probe::kDocs;
+  if (P < 1 || P > ss::kPMax || Ct > ss::kCMax || Cb > ss::kCMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc != nullptr) {
-    ss::mixed_kernel<true><<<grid, block, 0, st>>>(
+  const int n_tiles = (B + R - 1) / R;
+  const ss::probe::Tables tb = ss::probe::tables_at(tables, n_tiles, N);
+  int err = ss::probe::launch_build(tq, B, Q, qn, qnb, ph_ids, ph_valid, P, R,
+                                    N, tb, st);
+  if (err != 0) return err;
+  const dim3 grid(n_tiles, (D + kDocs - 1) / kDocs);  // a doc block's row tiles adjacent
+  const size_t extra = (size_t)ss::kLogWords * kDocs * 4 +
+                       ss::kOkWords * kDocs * 4 + (size_t)R * 4;
+  const size_t smem = ss::probe::smem_bytes(R, tc != nullptr, N, extra);
+  auto launch = [&](auto kernel, float* c_title, float* c_body) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, kDocs, smem, st>>>(
         title_ftT, title_fwT, Tt, body_ftT, body_fwT, Tb, D, title_posT, Ct,
-        tpos16, body_posT, Cb, bpos16, tq, btq, B, Q, qn_blk, qnb_blk, ph_ids,
-        ph_valid, P, pn_blk, ts, tc, bs, bc);
-  } else {
-    ss::mixed_kernel<false><<<grid, block, 0, st>>>(
-        title_ftT, title_fwT, Tt, body_ftT, body_fwT, Tb, D, title_posT, Ct,
-        tpos16, body_posT, Cb, bpos16, tq, btq, B, Q, qn_blk, qnb_blk, ph_ids,
-        ph_valid, P, pn_blk, ts, nullptr, bs, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+        tpos16, body_posT, Cb, bpos16, tb.term, tb.pay, N, R, B, tb.req, ts,
+        c_title, bs, c_body);
+    return (int)cudaGetLastError();
+  };
+  if (tc != nullptr) return launch(ss::mixed_kernel<true>, tc, bc);
+  return launch(ss::mixed_kernel<false>, nullptr, nullptr);
 }

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spaghettisearch_tpu.store.tables import Database
+from ..store.tables import Database
 
 _PAD = 128
 

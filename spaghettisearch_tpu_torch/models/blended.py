@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from spaghettisearch_tpu.config import MAX_RESULTS, SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
+from ..config import MAX_RESULTS, SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
 from ..ops import scoring as _scoring
 from ..ops.kernels import membership as _k1

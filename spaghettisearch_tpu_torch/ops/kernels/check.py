@@ -15,6 +15,7 @@ import torch
 from . import fused as k4
 from . import membership as k1
 from . import mixed as k2
+from . import probe
 
 #: the bar the JAX package holds its kernels to against their twins
 #: (tests/test_scoring_paths.py: rtol=1e-6); counts and masks are exact
@@ -29,34 +30,52 @@ def keyword_batch(index, b: int, q: int, seed: int, df=None, split: bool = True)
     engine.rank_async (by term count when there is no split)."""
     rng = np.random.default_rng(seed)
     n_words = index.n_words
-    hot_map = index.hot_body_map if split else None
     p = None if df is None else df / df.sum()
     max_terms = 4 if q <= 4 else q
-    term_ids = np.full((b, q), n_words, np.int32)
-    qn = np.zeros(b, np.int32)
-    qnb = np.zeros(b, np.int32)
-    hot_sids = np.full((b, q), -1, np.int32)
+    rows = []
     for i in range(b):
         n = int(rng.integers(1, max_terms + 1))
         ids = rng.choice(n_words, size=n, p=p).astype(np.int32)
         if i % 16 == 5:
             ids[0] = n_words  # unknown word: the sentinel id
+        rows.append(ids.tolist())
+    return rows_batch(index, rows, q, split)[0]
+
+
+def rows_batch(index, rows: list[list[int]], q: int, split: bool = True,
+               extra=None) -> tuple[dict, np.ndarray]:
+    """A keyword batch from each row's term ids (at most q; n_words is the
+    unknown-word sentinel), laid out as the engine lays it out: with the
+    index's hot cache (and split), cold terms first and hot slots in
+    hot_sids; rows sorted by (cold count, term count), descending, after
+    `extra` ([B] keys sorted on first, descending: phrase slot counts).
+    -> (batch, the row order applied)."""
+    b = len(rows)
+    n_words = index.n_words
+    hot_map = index.hot_body_map if split else None
+    term_ids = np.full((b, q), n_words, np.int32)
+    qn = np.zeros(b, np.int32)
+    qnb = np.zeros(b, np.int32)
+    hot_sids = np.full((b, q), -1, np.int32)
+    for i, ids in enumerate(rows):
+        n = len(ids)
         qn[i] = n
         if hot_map is None:
             term_ids[i, :n] = ids
             qnb[i] = n
             continue
-        cold = [t for t in ids.tolist() if t not in hot_map]
-        hots = [t for t in ids.tolist() if t in hot_map]
+        cold = [t for t in ids if t not in hot_map]
+        hots = [t for t in ids if t in hot_map]
         term_ids[i, :n] = cold + hots
         qnb[i] = len(cold)
         for j, t in enumerate(hots):
             hot_sids[i, j] = hot_map[t]
-    perm = np.lexsort((-qn, -qnb))
+    keys = (-qn, -qnb) if extra is None else (-qn, -qnb, -extra)
+    perm = np.lexsort(keys)
     return {
         "term_ids": term_ids[perm], "qn": qn[perm], "qnb": qnb[perm],
         "hot_sids": hot_sids[perm], "split": hot_map is not None,
-    }
+    }, perm
 
 
 def mixed_batch(
@@ -113,11 +132,120 @@ def _real_phrase(snap, rng) -> np.ndarray | None:
     return np.asarray(ids, np.int32)
 
 
+#: the batches that stress the probe tables (adversarial_batch)
+ADVERSARIAL = ("dup", "every_row", "q32", "phrase_kw", "phrase_rep", "sentinel", "b13", "b80",
+               "log_full")
+#: the kinds whose batch size is their point
+_FIXED_B = {"b13": 13, "b80": 80}
+
+
+def adversarial_batch(index, kind: str, seed: int, df=None, snap=None, b: int = 16) -> dict:
+    """A mixed batch (keyword and phrase fields, phrase rows first like
+    engine._rank_fused) built to stress the probe tables; Q=4 and P=4
+    unless said:
+      dup         a term two or three times in a row (multiplicity);
+      every_row   the most frequent term in every row, and as position 0
+                  of every phrase, alone in every other one (one term,
+                  many rows: long table runs, many phrase hits per doc);
+      q32         Q=32, every row 32 distinct terms (the largest table);
+      phrase_kw   phrase terms that are also keyword terms of their row;
+      phrase_rep  repeated phrase terms ([a, a], [a, b, a], [a, a, a]);
+      sentinel    all-sentinel rows, unknown-word keywords and phrase terms,
+                  a phrase whose slot 0 is invalid, an invalid middle slot;
+      b13         13 rows (a ragged row tile);
+      b80         80 rows (two row tiles, the second ragged);
+      log_full    one real 2-3 term phrase in every row: at B=16 a doc
+                  holding one of its terms logs exactly the 16 phrase hits
+                  K2's log keeps, one holding two overflows it and is
+                  checked by a rescan (csrc/mixed.cu kLog)."""
+    rng = np.random.default_rng(seed)
+    n_words = index.n_words
+    pr = None if df is None else df / df.sum()
+    b = _FIXED_B.get(kind, b)
+    q = 32 if kind == "q32" else 4
+    p = 4
+    top = int(np.argmax(df)) if df is not None else 0
+
+    def draw(n: int) -> list[int]:
+        return rng.choice(n_words, size=n, p=pr).astype(np.int32).tolist()
+
+    shared = None
+    if kind == "log_full":
+        while shared is None or len(shared) < 2:
+            shared = _real_phrase(snap, rng) if snap is not None else np.asarray(draw(2), np.int32)
+
+    def phrase(k: int) -> tuple[list[int], list[float]]:
+        if shared is not None:
+            return shared.tolist()[:p], [1.0] * min(len(shared), p)
+        ids = _real_phrase(snap, rng) if snap is not None and k % 2 == 0 else None
+        ids = draw(int(rng.integers(1, 4))) if ids is None else ids.tolist()
+        valid = [1.0] * len(ids)
+        if kind == "every_row":  # a 1-term phrase matches wherever top occurs
+            ids = [top] if k % 2 == 0 else [top] + ids[: p - 1]
+            valid = [1.0] * len(ids)
+        elif kind == "phrase_rep":
+            a, c = ids[0], (ids[1] if len(ids) > 1 else draw(1)[0])
+            ids = ([a, a], [a, c, a], [a, a, a])[k % 3]
+            valid = [1.0] * len(ids)
+        elif kind == "sentinel":
+            if k % 4 == 1:
+                ids = [n_words] + ids[1:]  # an unknown word at position 0
+            elif k % 4 == 2:
+                valid = [0.0] + valid[1:]  # slot 0 invalid: no phrase
+            elif k % 4 == 3 and len(ids) >= 2:
+                ids = [ids[0], n_words, ids[1]]
+                valid = [1.0, 0.0, 1.0]  # an invalid middle slot
+        return ids[:p], valid[:p]
+
+    rows, phrases = [], []
+    for i in range(b):
+        ph = phrase(i // 2) if i % 2 == 0 or shared is not None else ([], [])
+        n = int(rng.integers(1, q + 1))
+        if kind == "dup":
+            a = draw(1)[0]
+            ids = [a, a] + draw(n) if i % 2 else [a] + draw(1) + [a, a]
+        elif kind == "every_row":
+            ids = [top] + draw(n - 1)
+        elif kind == "q32":
+            ids = rng.choice(n_words, size=min(q, n_words), replace=False, p=pr).tolist()
+        elif kind == "phrase_kw":
+            ids = ph[0] + draw(n)
+        elif kind == "sentinel":
+            ids = [] if i % 4 == 1 else ([n_words] + draw(n - 1) if i % 4 == 3 else draw(n))
+        else:
+            ids = draw(n)
+        rows.append([int(t) for t in ids[:q]])
+        phrases.append(ph)
+    ph_ids = np.full((b, p), n_words, np.int32)
+    ph_valid = np.zeros((b, p), np.float32)
+    for i, (ids, valid) in enumerate(phrases):
+        ph_ids[i, : len(ids)] = ids
+        ph_valid[i, : len(valid)] = valid
+    pn = (ph_valid > 0).sum(1).astype(np.int32)
+    out, perm = rows_batch(index, rows, q, extra=pn)
+    out.update(ph_ids=ph_ids[perm], ph_valid=ph_valid[perm], pn=pn[perm])
+    return out
+
+
 def to_device(batch: dict, device) -> dict:
     return {
         k: (torch.from_numpy(np.ascontiguousarray(v)).to(device) if isinstance(v, np.ndarray) else v)
         for k, v in batch.items()
     }
+
+
+def tables_agree(batch: dict, phrases: bool) -> bool:
+    """The probe tables the K1 (or, with phrases, K2) entry point builds on
+    the card equal, entry for entry, their plain version's
+    (probe.cuda_tables vs probe.plain_tables) for a to_device() batch."""
+    args = [batch["term_ids"], batch["qn"], batch["qnb"] if batch["split"] else None]
+    if phrases:
+        args += [batch["ph_ids"], batch["ph_valid"]]
+    got, want = probe.cuda_tables(*args), probe.plain_tables(*args)
+    return (
+        got[2] == want[2] and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        and (want[3] is None or torch.equal(got[3], want[3]))
+    )
 
 
 def run_k1(index, batch: dict, emit_counts: bool, body_tmax: bool, plain: bool = False):

@@ -22,8 +22,7 @@ import ctypes
 
 import torch
 
-from spaghettisearch_tpu.config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
-
+from ...config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 from .membership import Q_MAX, _check, pad_rows, plain_section_scores
 
 #: topic categories the kernel's row tile holds (csrc/fused.cu kCMax)

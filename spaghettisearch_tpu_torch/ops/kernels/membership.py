@@ -19,10 +19,13 @@ doc-blocked). The plain versions are also the on-card references.
 Layout: the index is passed transposed, ftT/fwT [T, D] (doc axis
 contiguous), with each doc's real slots first and -1 pads after; query pads
 are sentinels (>= n_words or int32 max) that never match. qn/qnb (active
-term counts, rows sorted descending) and body_tmax (doc-sorted layout) only
-bound the kernel's loops: terms past a row's count are sentinels and slots
-past a block's tmax are pads, so the plain version, which ignores them,
-computes the same result.
+term counts) and body_tmax (doc-sorted layout) only narrow the kernels'
+work: terms past a row's count are sentinels and slots past a block's tmax
+are pads, so the plain version, which ignores them, computes the same
+result. K1 reads its query terms through the probe tables of probe.py
+(terms past qn leave the title table, past qnb the body table); K3 compares
+against a 32-row term tile bounded per 8 rows by qn (rows sorted
+descending).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import probe
 
 #: granularity of body_tmax (device_index DOC_BLOCK)
 TMAX_BLOCK = 512
@@ -45,10 +50,18 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # title ftT, fwT, Tt
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # body ftT, fwT, Tb
     ctypes.c_int,  # D
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tq, btq, B, Q
-    ctypes.c_void_p, ctypes.c_void_p,  # qn_blk, qnb_blk
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # term_ids, B, Q
+    ctypes.c_void_p, ctypes.c_void_p,  # qn, qnb (either may be null)
     ctypes.c_void_p, ctypes.c_int,  # body_tmax, tmax_block
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outs
+    ctypes.c_void_p,  # stream
+]
+_ARGTYPES_TABLES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # term_ids, B, Q
+    ctypes.c_void_p, ctypes.c_void_p,  # qn, qnb
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # rows, entries, table scratch
     ctypes.c_void_p,  # stream
 ]
 _ARGTYPES_1SEC = [
@@ -71,6 +84,7 @@ def library():
     built = load_library("membership")
     for fn, argtypes in (
         (built.lib.ss_membership2, _ARGTYPES), (built.lib.ss_membership1, _ARGTYPES_1SEC),
+        (built.lib.ss_probe_tables, _ARGTYPES_TABLES),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -142,6 +156,13 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _int32(x: torch.Tensor, name: str, b: int, device) -> torch.Tensor:
+    """A [b] per-row count as the kernels read it: int32, contiguous."""
+    if x.shape != (b,) or x.device != device:
+        raise ValueError(f"{name}: want [{b}] on {device}, got {tuple(x.shape)} on {x.device}")
+    return x.to(torch.int32).contiguous()
+
+
 def pad_rows(x: torch.Tensor, b_pad: int, value) -> torch.Tensor:
     """Row-pad a [B, ...] tensor to b_pad rows with `value`."""
     b = x.shape[0]
@@ -176,8 +197,6 @@ def forward_scores_2sec(
         )
     if term_ids.device.type != "cuda":
         raise ValueError(f"unsupported device {term_ids.device}")
-    from ..scoring import mask_cold
-
     dev = term_ids.device
     tt, d = title_ftT.shape
     tb = body_ftT.shape[0]
@@ -196,18 +215,15 @@ def forward_scores_2sec(
         _check(body_tmax, "body_tmax", torch.int32, 1, dev)
         if d % TMAX_BLOCK or body_tmax.shape[0] != d // TMAX_BLOCK:
             raise ValueError(f"body_tmax {tuple(body_tmax.shape)} vs D={d}")
-    body_tq = mask_cold(term_ids, qnb)
-    if qn is None:
-        qn = torch.full((b,), q, dtype=torch.int32, device=dev)
-    qnb_eff = qnb if qnb is not None else qn
-    b_pad = -(-b // 8) * 8
-    imax = torch.iinfo(torch.int32).max
-    tq = pad_rows(term_ids, b_pad, imax)
-    btq = pad_rows(body_tq.to(torch.int32), b_pad, imax)
-    qn_blk = _qn_blocks(pad_rows(qn.to(torch.int32), b_pad, 0), q)
-    qnb_blk = _qn_blocks(pad_rows(qnb_eff.to(torch.int32), b_pad, 0), q)
+    if qn is not None:
+        qn = _int32(qn, "qn", b, dev)
+    if qnb is not None:
+        qnb = _int32(qnb, "qnb", b, dev)
+    rows = probe.row_tile(b)
+    n = rows * q
+    tables = probe.scratch(b, rows, n, dev)
     n_out = 4 if emit_counts else 2
-    outs = [torch.empty((b_pad, d), dtype=torch.float32, device=dev) for _ in range(n_out)]
+    outs = [torch.empty((b, d), dtype=torch.float32, device=dev) for _ in range(n_out)]
     if emit_counts:
         ts, tc, bs, bc = outs
     else:
@@ -218,9 +234,10 @@ def forward_scores_2sec(
         err = lib.ss_membership2(
             title_ftT.data_ptr(), title_fwT.data_ptr(), tt,
             body_ftT.data_ptr(), body_fwT.data_ptr(), tb, d,
-            tq.data_ptr(), btq.data_ptr(), b_pad, q,
-            qn_blk.data_ptr(), qnb_blk.data_ptr(),
+            term_ids.data_ptr(), b, q,
+            None if qn is None else qn.data_ptr(), None if qnb is None else qnb.data_ptr(),
             None if body_tmax is None else body_tmax.data_ptr(), TMAX_BLOCK,
+            tables.data_ptr(), rows, n,
             ts.data_ptr(), None if tc is None else tc.data_ptr(),
             bs.data_ptr(), None if bc is None else bc.data_ptr(),
             stream,
@@ -229,12 +246,7 @@ def forward_scores_2sec(
         raise RuntimeError(f"membership kernel launch failed (cudaError {err})")
     global LAUNCHES
     LAUNCHES += 1
-    return (
-        ts[:b],
-        None if tc is None else tc[:b],
-        bs[:b],
-        None if bc is None else bc[:b],
-    )
+    return ts, tc, bs, bc
 
 
 def forward_scores(

@@ -20,7 +20,8 @@ main_retrieve.go:62-78), exactly as the JAX package's kernel and twin:
 hand-written kernel (csrc/mixed.cu) or raises; on CPU tensors it runs
 `plain_mixed_scores`, the plain PyTorch version (the counterpart of the
 JAX package's XLA twin mixed_forward_scores, doc-blocked), which is also
-the on-card reference.
+the on-card reference. The kernel reads keyword and phrase terms through
+one probe table per section (probe.py build_tables).
 
 Value-domain invariants (shared with the JAX package): real positions are
 -100 or in [0, POS_REAL_MAX); the pad is POS_BIG (finite, exactly
@@ -35,7 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .membership import Q_MAX, _check, _qn_blocks, pad_rows, plain_section_scores
+from . import probe
+from .membership import Q_MAX, _check, _int32, plain_section_scores
 
 #: pad value for absent position slots (see the module docstring)
 POS_BIG = float(1 << 24)
@@ -59,10 +61,10 @@ _ARGTYPES = [
     ctypes.c_int,  # D
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # title posT, Ct, int16?
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # body posT, Cb, int16?
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tq, btq, B, Q
-    ctypes.c_void_p, ctypes.c_void_p,  # qn_blk, qnb_blk
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # term_ids, B, Q
+    ctypes.c_void_p, ctypes.c_void_p,  # qn, qnb (qnb may be null)
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
-    ctypes.c_void_p,  # pn_blk
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outs
     ctypes.c_void_p,  # stream
 ]
@@ -222,9 +224,9 @@ def mixed_scores_2sec(
     """-> (title score, title count, body score, body count), each [B, D],
     phrase weights/candidacy folded in (counts None when emit_counts=False:
     candidacy <=> score > 0, valid iff every index weight is positive). The
-    batch should be sorted phrase-rows-first, then by descending qn, so
-    phrase-free row tiles skip the phrase stage. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    valid phrase slots are read from ph_valid; pn, like the plain version,
+    the kernel does not need. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     if term_ids.device.type == "cpu":
         ts, tc, bs, bc = plain_mixed_scores(
             title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
@@ -233,8 +235,6 @@ def mixed_scores_2sec(
         return (ts, tc, bs, bc) if emit_counts else (ts, None, bs, None)
     if term_ids.device.type != "cuda":
         raise ValueError(f"unsupported device {term_ids.device}")
-    from ..scoring import mask_cold
-
     dev = term_ids.device
     tt, d = title_ftT.shape
     tb = body_ftT.shape[0]
@@ -258,19 +258,15 @@ def mixed_scores_2sec(
         raise ValueError("forward tiles disagree on [T, D]")
     if not 1 <= q <= Q_MAX or not 1 <= p <= P_MAX or ph_valid.shape != (b, p):
         raise ValueError(f"Q={q} / P={p} outside the kernel's limits")
-    body_tq = mask_cold(term_ids, qnb)
-    qnb_eff = qnb if qnb is not None else qn
-    b_pad = -(-b // 8) * 8
-    imax = torch.iinfo(torch.int32).max
-    tq = pad_rows(term_ids, b_pad, imax)
-    btq = pad_rows(body_tq.to(torch.int32), b_pad, imax)
-    ph = pad_rows(ph_ids, b_pad, imax)
-    phv = pad_rows(ph_valid, b_pad, 0.0)
-    qn_blk = _qn_blocks(pad_rows(qn.to(torch.int32), b_pad, 0), q)
-    qnb_blk = _qn_blocks(pad_rows(qnb_eff.to(torch.int32), b_pad, 0), q)
-    pn_blk = _qn_blocks(pad_rows(pn.to(torch.int32), b_pad, 0), p)
+    if max(tt, tb) > 0x7FFF:
+        raise ValueError(f"T={max(tt, tb)} past the kernel's slot log (32767)")
+    qn = _int32(qn, "qn", b, dev)
+    qnb = None if qnb is None else _int32(qnb, "qnb", b, dev)
+    rows = probe.row_tile(b)
+    n = rows * (q + p)
+    tables = probe.scratch(b, rows, n, dev)
     n_out = 4 if emit_counts else 2
-    outs = [torch.empty((b_pad, d), dtype=torch.float32, device=dev) for _ in range(n_out)]
+    outs = [torch.empty((b, d), dtype=torch.float32, device=dev) for _ in range(n_out)]
     if emit_counts:
         ts, tc, bs, bc = outs
     else:
@@ -285,9 +281,10 @@ def mixed_scores_2sec(
             int(title_posT.dtype == torch.int16),
             body_posT.data_ptr(), body_posT.shape[0] // tb,
             int(body_posT.dtype == torch.int16),
-            tq.data_ptr(), btq.data_ptr(), b_pad, q,
-            qn_blk.data_ptr(), qnb_blk.data_ptr(),
-            ph.data_ptr(), phv.data_ptr(), p, pn_blk.data_ptr(),
+            term_ids.data_ptr(), b, q, qn.data_ptr(),
+            None if qnb is None else qnb.data_ptr(),
+            ph_ids.data_ptr(), ph_valid.data_ptr(), p,
+            tables.data_ptr(), rows, n,
             ts.data_ptr(), None if tc is None else tc.data_ptr(),
             bs.data_ptr(), None if bc is None else bc.data_ptr(),
             stream,
@@ -296,12 +293,7 @@ def mixed_scores_2sec(
         raise RuntimeError(f"mixed kernel launch failed (cudaError {err})")
     global LAUNCHES
     LAUNCHES += 1
-    return (
-        ts[:b],
-        None if tc is None else tc[:b],
-        bs[:b],
-        None if bc is None else bc[:b],
-    )
+    return ts, tc, bs, bc
 
 
 def mixed_scores_padded(

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from spaghettisearch_tpu.config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
+from ..config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
 from .kernels import fused as _k4
 from .kernels import membership as _k1

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from spaghettisearch_tpu.store.tables import Database
+from ..store.tables import Database
 
 
 def update_term_weights(db: Database, section: str, total_docs: int | None = None) -> None:

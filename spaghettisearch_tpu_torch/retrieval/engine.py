@@ -31,12 +31,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from spaghettisearch_tpu.config import MAX_KEYWORDS, MAX_LINKED_DOCS, MAX_RESULTS
-from spaghettisearch_tpu.store.docinfo import ZERO_TIME, DocInfo
-from spaghettisearch_tpu.store.tables import Database
-from spaghettisearch_tpu.utils.hashing import md5_hex
-from spaghettisearch_tpu.utils.timing import TRACER
-
+from ..config import MAX_KEYWORDS, MAX_LINKED_DOCS, MAX_RESULTS
+from ..store.docinfo import ZERO_TIME, DocInfo
+from ..store.tables import Database
+from ..utils.hashing import md5_hex
+from ..utils.timing import TRACER
 from ..index.snapshot import IndexSnapshot, build_snapshot
 from ..models.blended import BlendedRanker
 from ..ops.phrase import match_phrase_batch, match_phrase_fwd_batch
@@ -66,7 +65,7 @@ class ParsedQuery:
 
 
 def parse_query(text: str) -> ParsedQuery:
-    from spaghettisearch_tpu.text.laundry import laundry
+    from ..text.laundry import laundry
 
     spans = _PHRASE_RE.findall(text)
     phrases = [s[1:-1] for s in spans]

@@ -31,7 +31,7 @@ import zipfile
 
 import numpy as np
 
-from spaghettisearch_tpu.config import MAX_KEYWORDS, MAX_LINKED_DOCS
+from ..config import MAX_KEYWORDS, MAX_LINKED_DOCS
 
 SIDECAR_VERSION = 2
 SIDECAR_NAME = "hydration.npz"

@@ -21,7 +21,7 @@ import re
 from collections import OrderedDict
 from threading import Lock
 
-from spaghettisearch_tpu.store.tables import Database
+from ..store.tables import Database
 from ..text.htmlparse import extract_summary_text
 
 _NON_ALNUM_RUN = re.compile(r"[^a-zA-Z0-9]+")

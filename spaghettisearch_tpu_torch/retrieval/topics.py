@@ -12,7 +12,7 @@ the model actually usable (a documented improvement, off by default).
 
 from __future__ import annotations
 
-from spaghettisearch_tpu.store.tables import Database
+from ..store.tables import Database
 
 
 def compute_topic_probs(

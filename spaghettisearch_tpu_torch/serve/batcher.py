@@ -20,7 +20,7 @@ from concurrent.futures import Future
 from contextlib import contextmanager
 from dataclasses import dataclass
 
-from spaghettisearch_tpu.utils.timing import TRACER
+from ..utils.timing import TRACER
 
 
 def _parse_and_pack(text: str):

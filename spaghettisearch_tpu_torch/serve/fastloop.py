@@ -88,7 +88,7 @@ class FastHTTPFrontend:
 
     # ---------------- routing (mirrors server.py Handler) -------------- #
     def _route(self, method: str, target: str, body: bytes) -> bytes:
-        from spaghettisearch_tpu.utils.timing import TRACER
+        from ..utils.timing import TRACER
 
         s = self.s
         path = urlsplit(target).path

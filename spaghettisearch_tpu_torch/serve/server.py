@@ -25,8 +25,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import unquote, urlsplit
 
 from ..retrieval.engine import QueryEngine
-from spaghettisearch_tpu.utils.rwlock import RWLock
-from spaghettisearch_tpu.utils.timing import TRACER
+from ..utils.rwlock import RWLock
+from ..utils.timing import TRACER
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -38,10 +38,7 @@ class _HTTPServer(ThreadingHTTPServer):
 
 log = logging.getLogger("spaghettisearch.serve")
 
-STATIC_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "spaghettisearch_tpu", "serve", "static",
-)
+STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "static")
 
 _CONTENT_TYPES = {
     ".html": "text/html; charset=utf-8",

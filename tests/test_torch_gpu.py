@@ -1,7 +1,8 @@
 """GPU tests of the PyTorch port: each hand-written CUDA kernel (K1-K4)
 against its plain PyTorch version on the card, at small and at the main
-path's full widths (B=128, Q=4/32, P=16), and the CUDA engine against the
-CPU engine on the reference blend, BM25, a custom blend and the CSR route.
+path's full widths (B=128, Q=4/32, P=16), K1 and K2 also on the batches
+that stress their probe tables, and the CUDA engine against the CPU engine
+on the reference blend, BM25, a custom blend and the CSR route.
 
 This file imports no jax: on the card run it as
 
@@ -101,6 +102,54 @@ def test_mixed_kernel_matches_plain(cuda, corpus, indexes, pos16, emit_counts, b
     rep = check.compare(got, want)
     assert rep["ok"], rep
     assert got[0].shape == (b, idx.n_docs_padded)
+
+
+@pytest.mark.parametrize("doc_sort", [False, True])
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_membership_kernel_adversarial(cuda, corpus, indexes, kind, emit_counts, doc_sort):
+    """K1 on the batches that stress its probe tables (multiplicity, one
+    term in every row, Q=32, sentinel rows, B=13)."""
+    idx = indexes[doc_sort]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=3, df=_df(corpus[1]), snap=corpus[1]), cuda
+    )
+    got = check.run_k1(idx, batch, emit_counts, body_tmax=doc_sort)
+    want = check.run_k1(idx, batch, emit_counts, body_tmax=doc_sort, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare(got, want)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+
+
+@pytest.mark.parametrize("phrases", [False, True])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_probe_tables_match_plain_builder(cuda, corpus, indexes, kind, phrases):
+    """The table build the K1/K2 entry points launch equals its plain
+    version (probe.build_tables) entry for entry."""
+    idx = indexes[False]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=11, df=_df(corpus[1]), snap=corpus[1], b=128), cuda
+    )
+    assert check.tables_agree(batch, phrases)
+
+
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_mixed_kernel_adversarial(cuda, corpus, indexes, kind, b, emit_counts):
+    """K2 on the adversarial batches. every_row at B=128 and log_full at
+    both sizes give docs more phrase hits in a section than the kernel's
+    log keeps, so they take the rescan path."""
+    idx = indexes[False]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=b, df=_df(corpus[1]), snap=corpus[1], b=b), cuda
+    )
+    got = check.run_k2(idx, batch, emit_counts)
+    want = check.run_k2(idx, batch, emit_counts, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare(got, want)
+    assert rep["ok"], rep
 
 
 @pytest.mark.parametrize("section", ["title", "body"])

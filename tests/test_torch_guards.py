@@ -1,6 +1,7 @@
-"""Guards around the PyTorch port: it imports with jax, jaxlib and lxml
-blocked (a GPU host has neither); its copies of the JAX package's host
-modules cannot drift from their originals; its CLI and chip_smoke.py refuse
+"""Guards around the PyTorch port: it imports with jax, jaxlib, lxml and the
+JAX package itself blocked (a GPU host has neither jax nor lxml, and the
+port stands alone); its copies of the JAX package's host modules cannot
+drift from their originals; its CLI and chip_smoke.py refuse
 to run without CUDA instead of falling back; its kernel wrappers refuse
 inputs they do not take."""
 
@@ -26,7 +27,7 @@ _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
     class _Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "lxml"):
+            if name.split(".")[0] in ("jax", "jaxlib", "lxml", "spaghettisearch_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
     sys.meta_path.insert(0, _Block())
@@ -41,16 +42,26 @@ def _port_modules() -> list[str]:
     )
 
 
+#: top-level names the port and chip_smoke.py never import
+_FORBIDDEN = ("jax", "jaxlib", "lxml", "spaghettisearch_tpu")
+
+
 def test_port_imports_without_jax_or_lxml():
     mods = _port_modules()
     assert "spaghettisearch_tpu_torch.retrieval.engine" in mods and len(mods) > 25
     code = _BLOCKER + textwrap.dedent(f"""
         import importlib.util
+        try:
+            import spaghettisearch_tpu
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("the blocker let the JAX package through")
         for m in {mods!r}:
             importlib.import_module(m)
         spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
-        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lxml")]
+        bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
         assert not bad, bad
         print("clean")
     """)
@@ -61,25 +72,57 @@ def test_port_imports_without_jax_or_lxml():
     assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr[-3000:]
 
 
-def test_port_source_never_imports_jax():
+def _sources() -> list[str]:
     root = os.path.dirname(spaghettisearch_tpu_torch.__file__)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
-        for fn in files:
-            if fn.endswith(".py"):
-                tree = ast.parse(open(os.path.join(dirpath, fn), encoding="utf-8").read())
-                for node in ast.walk(tree):
-                    names = (
-                        [a.name for a in node.names] if isinstance(node, ast.Import)
-                        else [node.module or ""] if isinstance(node, ast.ImportFrom) else []
-                    )
-                    for n in names:
-                        assert n.split(".")[0] not in ("jax", "jaxlib", "lxml"), (fn, n)
+        paths += [os.path.join(dirpath, fn) for fn in files if fn.endswith(".py")]
+    return sorted(paths)
+
+
+def test_port_source_never_imports_jax():
+    """No absolute import of jax, jaxlib, lxml or the JAX package, at module
+    level or inside a function (lxml's one call-time import aside)."""
+    for path in _sources():
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        for node in ast.walk(tree):
+            names = (
+                [a.name for a in node.names] if isinstance(node, ast.Import)
+                else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                else []
+            )
+            for n in names:
+                if path.endswith(os.path.join("text", "htmlparse.py")) and n == "lxml":
+                    continue
+                assert n.split(".")[0] not in _FORBIDDEN, (path, n)
 
 
 #: host modules carried over verbatim: only import lines may differ, plus
-#: the listed substitutions (original, copy): the static-file path, and
-#: comment wording that names the original's own workspace
+#: the listed substitutions (original, copy): comment wording that names the
+#: original's own workspace, and the jax.profiler hook, which has no
+#: counterpart in the port
 COPIES = {
+    "config.py": (),
+    "store/__init__.py": (),
+    "store/docinfo.py": (),
+    "store/kv.py": (),
+    "store/native_kv.py": (),
+    "store/tables.py": (),
+    "text/laundry.py": (),
+    "text/porter2.py": (),
+    "text/stopwords.py": (),
+    "utils/__init__.py": (),
+    "utils/hashing.py": (),
+    "utils/rwlock.py": (),
+    "utils/timing.py": ((
+        '\n\n@contextlib.contextmanager\ndef device_trace(logdir: str):\n'
+        '    """Capture a jax.profiler device trace around a block."""\n'
+        '    import jax\n\n'
+        '    jax.profiler.start_trace(logdir)\n    try:\n        yield\n'
+        '    finally:\n        jax.profiler.stop_trace()\n',
+        '\n# Device traces come from torch.profiler (experiments/torch_profile.py);\n'
+        '# the jax.profiler hook has no counterpart in this package.\n',
+    ),),
     "index/snapshot.py": (),
     "index/persist.py": (),
     "ops/weighting.py": (("crawl driver still", "crawl command still"),),
@@ -92,13 +135,8 @@ COPIES = {
     "retrieval/topics.py": (),
     "serve/batcher.py": (("FINDINGS sessions 5-6", "FINDINGS s5-6"),),
     "serve/fastloop.py": (),
-    "serve/server.py": ((
-        'STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "static")',
-        'STATIC_DIR = os.path.join(\n'
-        '    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),\n'
-        '    "spaghettisearch_tpu", "serve", "static",\n'
-        ')',
-    ),),
+    "serve/server.py": (),
+    "serve/static/index.html": (),
 }
 
 
@@ -119,6 +157,32 @@ def test_copied_module_matches_original(rel):
         assert copy.count(b) == 1
         copy = copy.replace(b, a)
     assert _strip_imports(copy) == _strip_imports(orig)
+
+
+def _ast_defs(path: str) -> dict[str, str]:
+    """Top-level functions and assignments of a source file, each dumped
+    without its import statements (those may differ between copies)."""
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            node.body = [n for n in node.body if not isinstance(n, (ast.Import, ast.ImportFrom))]
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+def test_summary_extractor_matches_original():
+    """text/htmlparse.py carries the original's extract_summary_text and
+    what it calls; lxml is imported inside _parse_dom instead of at module
+    level."""
+    orig = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu", "text", "htmlparse.py"))
+    copy = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu_torch", "text", "htmlparse.py"))
+    assert set(copy) == {"_SKIP_TEXT_PARENTS", "_SUMMARY_PRUNE", "_parse_dom",
+                         "extract_summary_text"}
+    for name, src in copy.items():
+        assert src == orig[name], name
 
 
 def _func_src(obj) -> str:

@@ -2,9 +2,11 @@
 package: K1's plain version (the wrapper's CPU route) vs
 pallas_forward_scores_2sec in interpret mode and the XLA twin
 forward_section_scores, with the per-block q bound, the hot split, both
-count variants and the doc-sorted T bound; K3's (forward_scores) vs
-pallas_forward_scores with qn-sorted rows and both count variants; the
-port's exact_top_k vs the JAX one on ties, with and without doc_map.
+count variants and the doc-sorted T bound; K1's probe algorithm (its
+wrapper's tables, walked with torch ops) vs both on adversarial batches;
+K3's (forward_scores) vs pallas_forward_scores with qn-sorted rows and both
+count variants; the port's exact_top_k vs the JAX one on ties, with and
+without doc_map.
 
 Scores within rtol=1e-6 (the JAX package's own kernel-vs-twin bar,
 tests/test_scoring_paths.py); counts, candidacy masks and ids exact. Inputs
@@ -28,6 +30,7 @@ from spaghettisearch_tpu.ops.scoring import exact_top_k as jax_top_k
 from spaghettisearch_tpu.ops.scoring import forward_section_scores, mask_cold
 from spaghettisearch_tpu.retrieval.device_index import DeviceIndex as JaxIndex
 from spaghettisearch_tpu_torch.corpus import write_corpus
+from spaghettisearch_tpu_torch.ops.kernels import check, probe
 from spaghettisearch_tpu_torch.ops.kernels import membership as k1
 from spaghettisearch_tpu_torch.ops.scoring import exact_top_k
 from spaghettisearch_tpu_torch.retrieval.device_index import DeviceIndex
@@ -164,3 +167,52 @@ def test_one_section_plain_matches_pallas(crawl_snap, bench_snap, which, section
     else:
         assert got[1] is None and want[1] is None
     assert (got[0].numpy() > 0).sum() > 0
+
+
+def _pad_rows(x, b_pad, value):
+    out = np.full((b_pad,) + x.shape[1:], value, x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_probe_walk_matches_plain_and_pallas(bench_snap, kind):
+    """K1's algorithm (the probe tables its wrapper builds, walked slot by
+    slot with torch ops) equals the plain version and the interpret-mode
+    Pallas kernel on batches built to stress the tables: multiplicity,
+    one term in every row, Q=32, all-sentinel and unknown-word rows, B=13,
+    B=80 (two row tiles); hot split and doc-sorted T bound on."""
+    jdx, tdx = _indexes(bench_snap, doc_sort=True)
+    df = np.diff(bench_snap.body.post_offsets).astype(np.float64)
+    nb = check.adversarial_batch(tdx, kind, seed=5, df=df, snap=bench_snap)
+    batch = check.to_device(nb, "cpu")
+    tq, qn, qnb = batch["term_ids"], batch["qn"], batch["qnb"]
+    b, q = tq.shape
+    assert batch["split"] and b == {"b13": 13, "b80": 80}.get(kind, 16)
+    assert q == (32 if kind == "q32" else 4)
+    terms, pay, rows, _ = probe.plain_tables(tq, qn, qnb)
+    assert terms.shape[1] == -(-b // probe.ROWS_MAX)
+    real = terms[0] != probe.TERM_PAD  # the title tables of every row tile
+    assert int(real.sum()) == len({(int(t), i) for i in range(b) for t in nb["term_ids"][i, : nb["qn"][i]]})
+    if kind == "dup":
+        assert int((pay[0][real] & 0x7FFF).max()) >= 2  # multiplicity carried
+    bound = tdx.body.tmax_blocks.repeat_interleave(k1.TMAX_BLOCK)
+    t, bd = tdx.title.fwd, tdx.body.fwd
+    walk = probe.walk_sections(t.ftT, t.fwT, bd.ftT, bd.fwT, terms, pay, b, rows, body_bound=bound)
+    plain = k1.plain_forward_scores_2sec(t.ftT, t.fwT, bd.ftT, bd.fwT, tq, qn, qnb=qnb,
+                                         body_tmax=tdx.body.tmax_blocks)
+    rep = check.compare(walk, plain)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+    b_pad = -(-b // 8) * 8
+    want = pallas_forward_scores_2sec(
+        jdx.title.fwd.ftT, jdx.title.fwd.fwT, jdx.body.fwd.ftT, jdx.body.fwd.fwT,
+        jnp.asarray(_pad_rows(nb["term_ids"], b_pad, tdx.n_words)),
+        jnp.asarray(_pad_rows(nb["qn"], b_pad, 0)), doc_block=512, emit_counts=True,
+        interpret=True, qnb=jnp.asarray(_pad_rows(nb["qnb"], b_pad, 0)),
+        body_tmax=jdx.body.tmax_blocks,
+    )
+    for g, w in zip(walk, want):
+        np.testing.assert_allclose(g.numpy(), _np(w)[:b], rtol=RTOL)
+    assert np.array_equal(walk[1].numpy(), _np(want[1])[:b])
+    assert np.array_equal(walk[3].numpy(), _np(want[3])[:b])

@@ -6,7 +6,8 @@ bigrams, repeated and absent terms, natural and doc-sorted layouts.
 
 Scores within rtol=1e-6 (the JAX package's own kernel-vs-twin bar,
 tests/test_scoring_paths.py); counts exact. Inputs are made with numpy from
-a seed and handed to both packages.
+a seed and handed to both packages. K2's probe algorithm (its wrapper's
+tables, walked with torch ops) is held to both on adversarial batches.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from spaghettisearch_tpu.ops.kernels.mixed import (
     pallas_mixed_scores_2sec,
 )
 from spaghettisearch_tpu.ops.scoring import forward_section_scores
+from spaghettisearch_tpu_torch.ops.kernels import check, probe
+from spaghettisearch_tpu_torch.ops.kernels import membership as k1
 from spaghettisearch_tpu_torch.ops.kernels import mixed as k2
 from test_torch_membership import (  # noqa: F401 — module fixtures
     RTOL,
@@ -140,3 +143,58 @@ def test_mixed_counts_derive_after_hot_fold():
     bs = torch.tensor([[0.0, 0.0, 2.0]])
     _, tc, _, bc = k2.derive_mixed_counts(ts, None, bs, None)
     assert tc.tolist() == [[0.0, 1.0, 1.0]] and bc.tolist() == [[0.0, 0.0, 0.0]]
+
+
+def _pad_rows(x, b_pad, value):
+    out = np.full((b_pad,) + x.shape[1:], value, x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_probe_walk_matches_plain_and_pallas(bench_snap, kind):
+    """K2's algorithm (one probe table per section holding keyword and
+    phrase entries, walked slot by slot with torch ops; the chain checked
+    only where the sweep found every required phrase term) equals the plain
+    version and the interpret-mode Pallas kernel on adversarial batches:
+    phrase terms that are keyword terms, repeated phrase terms, unknown and
+    invalid phrase slots, one term in every row, Q=32, B=13, B=80."""
+    jdx, tdx = _indexes(bench_snap, doc_sort=False)
+    df = np.diff(bench_snap.body.post_offsets).astype(np.float64)
+    nb = check.adversarial_batch(tdx, kind, seed=9, df=df, snap=bench_snap)
+    batch = check.to_device(nb, "cpu")
+    tq, qn, qnb = batch["term_ids"], batch["qn"], batch["qnb"]
+    ph_ids, ph_valid = batch["ph_ids"], batch["ph_valid"]
+    b, p = ph_ids.shape
+    terms, pay, rows, req = probe.plain_tables(tq, qn, qnb, ph_ids, ph_valid)
+    real = terms[0] != probe.TERM_PAD
+    assert int(((pay[0] & probe.PHRASE) != 0)[real].sum()) == int(
+        ((ph_valid > 0) & (ph_ids >= 0)).sum()
+    )
+    t, bd = tdx.title, tdx.body
+    tpos, bpos = k2.deq_posT(t.posT), k2.deq_posT(bd.posT)
+    walk = probe.walk_sections(
+        t.fwd.ftT, t.fwd.fwT, bd.fwd.ftT, bd.fwd.fwT, terms, pay, b, rows,
+        title_posT=tpos, body_posT=bpos, req=req, n_phrase=p,
+    )
+    plain = k2.plain_mixed_scores(t.fwd.ftT, t.fwd.fwT, bd.fwd.ftT, bd.fwd.fwT, t.posT, bd.posT,
+                                  tq, ph_ids, ph_valid, qnb=qnb)
+    rep = check.compare(walk, plain)
+    assert rep["ok"], rep
+    b_pad = -(-b // 8) * 8
+    args = [jnp.asarray(_pad_rows(nb[k], b_pad, v)) for k, v in (
+        ("term_ids", tdx.n_words), ("qn", 0), ("ph_ids", tdx.n_words), ("ph_valid", 0.0), ("pn", 0),
+    )]
+    want = pallas_mixed_scores_2sec(
+        jdx.title.fwd.ftT, jdx.title.fwd.fwT, jdx.body.fwd.ftT, jdx.body.fwd.fwT,
+        jdx.title.posT, jdx.body.posT, *args, emit_counts=True, interpret=True,
+        qnb=jnp.asarray(_pad_rows(nb["qnb"], b_pad, 0)),
+    )
+    for g, w in zip(walk, want):
+        np.testing.assert_allclose(g.numpy(), _np(w)[:b], rtol=RTOL)
+    assert np.array_equal(walk[1].numpy(), _np(want[1])[:b])
+    assert np.array_equal(walk[3].numpy(), _np(want[3])[:b])
+    # phrase matches happened where the batch holds real phrases
+    kw = k1.plain_forward_scores_2sec(t.fwd.ftT, t.fwd.fwT, bd.fwd.ftT, bd.fwd.fwT, tq, qn, qnb=qnb)
+    if kind != "sentinel":
+        assert int((walk[1] - kw[1]).sum()) > 0, kind
