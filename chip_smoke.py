@@ -17,14 +17,17 @@ Phases (any failure raises and the script exits non-zero):
      f32 planes, both count variants; K1 and K2 on the adversarial batches
      that stress their probe tables (check.ADVERSARIAL, B=128), and K2 on
      log_full at B=16 too (with every_row, docs overflow K2's phrase-hit
-     log: the rescan path); each batch's probe tables, as the K1/K2 entry
-     points build them, equal to their plain build; K3 (one section) at
-     B=128, Q=4 and Q=32, both count variants, qn-sorted rows; K4 (fused)
-     at B=128, Q=4 and Q=32, topics off (C=1) and a seeded C=8 blend; each
-     kernel's bound from this run's data (bound_ms) and, for K1 and K3,
-     the time of torch.sparse.mm per section, the library call computing
-     the same function, held first against the plain version;
-     score_queries_fused vs the production keyword scorer per B=128 batch;
+     log: the rescan path); K3 (title and body, both count variants) and
+     K4 (C=1 and C=8) on the same batches; each batch's probe tables, as
+     the K1/K2/K3/K4 entry points build them, equal to their plain build;
+     K3 (one section) at B=128, Q=4 and Q=32, both count variants,
+     qn-sorted rows; K4 (fused) at B=128, Q=4 and Q=32, topics off (C=1)
+     and a seeded C=8 blend; each kernel's bound from this run's data
+     (bound_ms) and, for K1 and K3, the time of torch.sparse.mm per
+     section, the library call computing the same function, held first
+     against the plain version; per B=128 batch, score_queries_fused vs
+     the production keyword scorer, and one custom-blend rank (two K3
+     calls, phrase fold, finalize, top-k);
   5. serving: the port's SearchServer (micro-batching on) after warmup()
      answers POST /query, GET /query/{terms} and GET /wordlist/{prefix}
      from several client threads; every response must be 200 JSON, the
@@ -478,12 +481,12 @@ def main() -> int:
             raise RuntimeError(f"{kname} kernel disagrees with its plain version: {rep}")
         records[kname].append(rep)
 
-    def hold_tables(batch, what: str) -> None:
-        for phrases in (False, True) if "ph_ids" in batch else (False,):
-            if not check.tables_agree(batch, phrases):
-                raise RuntimeError(f"the probe tables of {what} (phrases={phrases}) differ "
-                                   "from their plain version")
-        say(f"# probe tables {what}: equal to the plain build")
+    def hold_tables(batch, what: str, one: str | None = None) -> None:
+        for phrases in (False, True) if "ph_ids" in batch and one is None else (False,):
+            if not check.tables_agree(batch, phrases, one=one):
+                raise RuntimeError(f"the probe tables of {what} (phrases={phrases}, {one or 'K1/K2'}) "
+                                   "differ from their plain version")
+        say(f"# probe tables {what} ({one or 'K1/K2'}): equal to the plain build")
 
     def hold_k1(batch, what: str) -> None:
         hold_tables(batch, what)
@@ -511,6 +514,24 @@ def main() -> int:
     mbatch16 = check.to_device(  # the serving shape: B=16, P=P_BASE
         check.mixed_batch(idx, 16, 4, 4, seed=2, df=df, snap=snap), "cuda"
     )
+
+    def hold_k3(batch, what: str) -> None:
+        hold_tables(batch, what, one="K3")
+        for section in ("title", "body"):
+            for emit in (True, False):
+                got = check.run_k3(idx, batch, emit, section)
+                want = check.run_k3(idx, batch, emit, section, plain=True)
+                held("membership_1sec", check.compare_section(got, want),
+                     f"K3 {section} {what} counts={emit}")
+
+    def hold_k4(batch, what: str) -> None:
+        hold_tables(batch, what, one="K4")
+        for c in (1, 8):
+            inputs = check.fused_inputs(idx, batch, c, seed=c)
+            got = check.run_k4(idx, batch, inputs)
+            want = check.run_k4(idx, batch, inputs, plain=True)
+            held("fused", check.compare_final(got, want), f"K4 {what} C={c}")
+
     for index in (idx, idx32):
         hold_k2(index, mbatch, "B=128 Q=4 P=16")
         hold_k2(index, mbatch16, "B=16 Q=4 P=4")
@@ -521,6 +542,8 @@ def main() -> int:
         b, q = batch["term_ids"].shape
         hold_k1(batch, f"adversarial {kind} B={b} Q={q}")
         hold_k2(idx, batch, f"adversarial {kind} B={b} Q={q} P=4")
+        hold_k3(batch, f"adversarial {kind} B={b} Q={q}")
+        hold_k4(batch, f"adversarial {kind} B={b} Q={q}")
     # every_row and log_full at B=128 (above) and log_full at the serving
     # shape give docs more phrase hits in a section than K2's log keeps:
     # the rescan path
@@ -533,17 +556,8 @@ def main() -> int:
                                 "cuda")
         if not bool((batch["qn"][:-1] >= batch["qn"][1:]).all()):
             raise RuntimeError("K3 batch rows are not qn-sorted")
-        for section in ("title", "body"):
-            for emit in (True, False):
-                got = check.run_k3(idx, batch, emit, section)
-                want = check.run_k3(idx, batch, emit, section, plain=True)
-                held("membership_1sec", check.compare_section(got, want),
-                     f"K3 {section} B=128 Q={q} counts={emit} qn-sorted")
-        for c in (1, 8):
-            inputs = check.fused_inputs(idx, batch, c, seed=c)
-            got = check.run_k4(idx, batch, inputs)
-            want = check.run_k4(idx, batch, inputs, plain=True)
-            held("fused", check.compare_final(got, want), f"K4 B=128 Q={q} C={c}")
+        hold_k3(batch, f"B=128 Q={q} qn-sorted")
+        hold_k4(batch, f"B=128 Q={q}")
     kbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df), "cuda")
     cbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df, split=False), "cuda")
     k4_in = check.fused_inputs(idx, cbatch, 1, seed=1)
@@ -629,10 +643,20 @@ def main() -> int:
             qnb=kbatch["qnb"], hot_sids=kbatch["hot_sids"],
         )
 
+    title_only = BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0)
+    qlen_c = cbatch["qn"].clamp(min=1).to(torch.float32)
+
+    def rank_custom():  # the custom-blend route's keyword rank
+        return title_only._custom_forward(idx, cbatch["term_ids"], qlen_c, tp0, 50, qn=cbatch["qn"])
+
     fused_ms, forward_ms = check.time_ms(rank_fused), check.time_ms(rank_forward)
+    custom_ms = check.time_ms(rank_custom)
     say(f"# score_queries_fused {fused_ms:.4f} ms vs score_queries_forward (production "
         f"keyword scorer: K1, hot split, finalize, top-k) {forward_ms:.4f} ms per B=128 "
-        f"batch ({smi}); kernel phase {time.perf_counter() - t0:.1f}s")
+        f"batch ({smi})")
+    say(f"# custom-blend rank (two K3 calls with counts, phrase fold, finalize, top-k) "
+        f"{custom_ms:.4f} ms per B=128 batch ({smi}); kernel phase "
+        f"{time.perf_counter() - t0:.1f}s")
     phase_launches = {}
 
     # 5. serving through the port's HTTP front end (the reference blend)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K1 and K2 of one checkout of the PyTorch port on one GPU.
+"""Time the kernels of one checkout of the PyTorch port on one GPU.
 
     python3 experiments/torch_kernel_ab.py --tree DIR --db build/ab_corpus [--write]
 
@@ -9,11 +9,17 @@ checkout's store (with --write it first writes it there), builds the
 device index as the engine does, and measures on the card:
   - K1 at B=128 (Q=4, hot split, doc-sorted bound, counts as the engine
     emits them), K2 at B=128 (Q=4, P=16) and at B=16 (Q=4, P=4, the
-    serving shape): the wrapper call, by CUDA events over 50 calls back to
-    back (check.time_ms), and the kernel alone, by torch.profiler
-    (device time of the events named membership2_kernel / mixed_kernel,
-    and of build_tables_kernel, the probe-table build, where there is one);
-  - each wrapper's result against its plain version (check.compare);
+    serving shape), K3 at B=128 (body section, counts on, Q=4: the
+    custom-blend route's call), K4 at B=128 (Q=4, topics off), and one
+    custom-blend rank at B=128 (BlendedRanker._custom_forward: two K3
+    calls, phrase fold, finalize, top-k): the call, by CUDA events over 50
+    calls back to back (check.time_ms), and the kernel alone, by
+    torch.profiler (device time of the events named membership2_kernel /
+    mixed_kernel / membership1_kernel / fused_kernel, and of
+    build_tables_kernel, the probe-table build, where there is one);
+  - each result against its plain version (check.compare, compare_section,
+    compare_final; the custom rank's top-50 scores against the rank with
+    K3's plain version);
   - with --serve, --bursts bursts (default 1) of 320 POST /query from 8
     clients through the checkout's HTTP front end (req/s, latency p50/p99,
     launches, batches per burst).
@@ -52,7 +58,8 @@ def main() -> int:
         return 2
     from spaghettisearch_tpu_torch import corpus
     from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
-    from spaghettisearch_tpu_torch.ops.kernels import check
+    from spaghettisearch_tpu_torch.models.blended import BlendedRanker
+    from spaghettisearch_tpu_torch.ops.kernels import check, membership
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
 
     smi = subprocess.run(
@@ -74,17 +81,42 @@ def main() -> int:
     emit = idx.has_zero_weight
     tmax = idx.body.tmax_blocks is not None
     kbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df), "cuda")
+    cbatch = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df, split=False), "cuda")
     m128 = check.to_device(check.mixed_batch(idx, 128, 4, 16, seed=1, df=df, snap=snap), "cuda")
     m16 = check.to_device(check.mixed_batch(idx, 16, 4, 4, seed=2, df=df, snap=snap), "cuda")
+    k4_in = check.fused_inputs(idx, cbatch, 1, seed=1)
+    qlen = cbatch["qn"].clamp(min=1).to(torch.float32)
+    tp0 = torch.zeros((128, idx.n_categories), device="cuda")
+    title_only = BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0)
+
+    def custom_rank(plain=False):
+        saved = membership.forward_scores
+        if plain:
+            membership.forward_scores = lambda ftT, fwT, tq, qn=None, *, emit_counts=True: (
+                membership.plain_section_scores(ftT, fwT, tq))
+        try:
+            return title_only._custom_forward(idx, cbatch["term_ids"], qlen, tp0, 50,
+                                              qn=cbatch["qn"])
+        finally:
+            membership.forward_scores = saved
+
     cases = {
         "K1 B=128": (lambda plain=False: check.run_k1(idx, kbatch, emit, tmax, plain=plain),
-                     "membership2_kernel"),
-        "K2 B=128": (lambda plain=False: check.run_k2(idx, m128, emit, plain=plain), "mixed_kernel"),
-        "K2 B=16": (lambda plain=False: check.run_k2(idx, m16, emit, plain=plain), "mixed_kernel"),
+                     "membership2_kernel", check.compare),
+        "K2 B=128": (lambda plain=False: check.run_k2(idx, m128, emit, plain=plain),
+                     "mixed_kernel", check.compare),
+        "K2 B=16": (lambda plain=False: check.run_k2(idx, m16, emit, plain=plain),
+                    "mixed_kernel", check.compare),
+        "K3 body B=128": (lambda plain=False: check.run_k3(idx, cbatch, True, "body", plain=plain),
+                          "membership1_kernel", check.compare_section),
+        "K4 B=128 C=1": (lambda plain=False: check.run_k4(idx, cbatch, k4_in, plain=plain),
+                         "fused_kernel", check.compare_final),
+        "custom rank B=128": (custom_rank, "membership1_kernel",
+                              lambda got, want: check.compare_final(got[0], want[0])),
     }
     out = {"label": args.label, "device": smi, "setup_s": setup_s, "cases": {}}
-    for name, (run, kname) in cases.items():
-        rep = check.compare(run(), run(plain=True))
+    for name, (run, kname, compare) in cases.items():
+        rep = compare(run(), run(plain=True))
         ms = check.time_ms(run, iters=50, warmup=5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

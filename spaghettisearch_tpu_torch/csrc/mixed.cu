@@ -293,14 +293,14 @@ extern "C" int ss_mixed(const int* title_ftT, const float* title_fwT, int Tt,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (B + R - 1) / R;
-  const ss::probe::Tables tb = ss::probe::tables_at(tables, n_tiles, N);
+  const ss::probe::Tables tb = ss::probe::tables_at(tables, n_tiles, N, 2);
   int err = ss::probe::launch_build(tq, B, Q, qn, qnb, ph_ids, ph_valid, P, R,
-                                    N, tb, st);
+                                    N, 2, tb, st);
   if (err != 0) return err;
   const dim3 grid(n_tiles, (D + kDocs - 1) / kDocs);  // a doc block's row tiles adjacent
   const size_t extra = (size_t)ss::kLogWords * kDocs * 4 +
                        ss::kOkWords * kDocs * 4 + (size_t)R * 4;
-  const size_t smem = ss::probe::smem_bytes(R, tc != nullptr, N, extra);
+  const size_t smem = ss::probe::smem_bytes(R, tc != nullptr ? 2 : 1, N, extra);
   auto launch = [&](auto kernel, float* c_title, float* c_body) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,4 +1,5 @@
-// The probe sweep shared by K1 (membership.cu) and K2 (mixed.cu).
+// The probe sweep shared by K1 and K3 (membership.cu), K2 (mixed.cu) and
+// K4 (fused.cu).
 //
 // A block owns 128 docs (one thread each) and one tile of up to 64 query
 // rows. Per section it stages the tile's probe table (built by
@@ -34,6 +35,7 @@ namespace probe {
 
 constexpr int kDocs = 128;        // threads per block, one doc each
 constexpr int kRowsMax = 64;      // query rows per block (ops/kernels/probe.py ROWS_MAX)
+constexpr int kQMax = 32;         // query term columns (engine Q_CATCHALL)
 constexpr int kFilterBits = 15;   // 32768-bit filter, 4 KB
 constexpr int kFilterWords = 1 << (kFilterBits - 5);
 constexpr int kTermPad = 0x7fffffff;
@@ -63,6 +65,18 @@ __device__ __forceinline__ int lower_bound(const int* s_term, int n, int f) {
     }
   }
   return lo;
+}
+
+// The body sweep's slot bound: the doc-sorted layout's per-512-doc-block max
+// distinct-term count (exact: slots past it are pads). Read at the warp's
+// first doc so the bound is warp-uniform (512 is a multiple of 32).
+__device__ inline int body_bound(const int* __restrict__ tmax, int tmax_block,
+                                 int Tb, int D, int d) {
+  if (tmax == nullptr) return Tb;
+  int dw = d & ~31;
+  if (dw > D - 1) dw = D - 1;
+  const int t = tmax[dw / tmax_block];
+  return t < Tb ? (t < 0 ? 0 : t) : Tb;
 }
 
 // Stage one tile's table (global, N entries, sorted, pads last) in shared
@@ -96,16 +110,18 @@ __device__ inline int stage_table(int* s_term, int* s_pay, uint32_t* s_filter,
   return staged;
 }
 
-__device__ __forceinline__ void zero_rows(float* col, int R) {
-  for (int r = 0; r < R; ++r) col[r * kDocs] = 0.f;
+template <class T>
+__device__ __forceinline__ void zero_rows(T* col, int R) {
+  for (int r = 0; r < R; ++r) col[r * kDocs] = T(0);
 }
 
 // Store this thread's column of R rows (rows past B are not stored).
+template <class T>
 __device__ __forceinline__ void store_rows(float* __restrict__ out,
-                                           const float* col, int r0, int R,
+                                           const T* col, int r0, int R,
                                            int B, int D, int d) {
   const int n = min(R, B - r0);
-  for (int r = 0; r < n; ++r) out[(size_t)(r0 + r) * D + d] = col[r * kDocs];
+  for (int r = 0; r < n; ++r) out[(size_t)(r0 + r) * D + d] = (float)col[r * kDocs];
 }
 
 // Where a K2 sweep logs phrase hits: up to `cap` entries per thread,
@@ -118,15 +134,49 @@ struct PhraseLog {
   bool overflow;
 };
 
-// One section's sweep for this thread's doc. Keyword entries add
-// w * multiplicity to acc_s (and multiplicity to acc_c); with kPhrase,
-// phrase entries are logged. `bound` must be warp-uniform.
-template <bool kCounts, bool kPhrase>
+// Slot j of this thread's doc holds term f (weight w), which passed the
+// filter: find its entries and take each. Keyword entries add
+// w * multiplicity to acc_s (and multiplicity to acc_c); with kHits they
+// set bit `row` of *hits (K4's candidacy: some slot matched the row, a
+// zero weight included); with kPhrase, phrase entries are logged.
+template <bool kCounts, bool kPhrase, bool kHits, class CountT>
+__device__ __forceinline__ void take_hit(int f, float w, int j,
+                                         const int* s_term, const int* s_pay,
+                                         int n, float* acc_s, CountT* acc_c,
+                                         PhraseLog* plog,
+                                         unsigned long long* hits) {
+  for (int e = lower_bound(s_term, n, f); e < n && s_term[e] == f; ++e) {
+    const int p = s_pay[e];
+    const int row = p >> 16;
+    if (!kPhrase || !(p & kPhraseFlag)) {
+      const int m = p & 0x7fff;
+      acc_s[row * kDocs] += w * (float)m;
+      if (kCounts) acc_c[row * kDocs] += (CountT)m;
+      if (kHits) *hits |= 1ull << row;
+    } else if (plog->n < plog->cap) {
+      plog->log[plog->n++ * kDocs] = ((uint32_t)e << 16) | (uint32_t)j;
+    } else {
+      plog->overflow = true;
+    }
+  }
+}
+
+// One section's sweep for this thread's doc: each real slot below `bound`
+// (warp-uniform) that passes the filter is taken (take_hit), in slot order.
+// Without kCompact a warp walks the kUnroll slots of a batch one by one, so
+// lanes that pass the filter at different slots take their hits one after
+// the other. With kCompact each lane first marks the batch's slots that
+// pass, then walks its own marks, so the lanes of a warp take their k-th
+// hits together: K3 and K4, whose tables keep the hot terms (no hot
+// split), have some lane hitting in most slot rows of a warp.
+template <bool kCounts, bool kPhrase, bool kHits = false, bool kCompact = false,
+          class CountT = float>
 __device__ inline void sweep(const int* __restrict__ ftT,
                              const float* __restrict__ fwT, int bound, int D,
                              int d, bool live, const int* s_term,
                              const int* s_pay, const uint32_t* s_filter, int n,
-                             float* acc_s, float* acc_c, PhraseLog* plog) {
+                             float* acc_s, CountT* acc_c, PhraseLog* plog,
+                             unsigned long long* hits = nullptr) {
   int cur[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u)
@@ -138,45 +188,90 @@ __device__ inline void sweep(const int* __restrict__ ftT,
       const int j = j0 + kUnroll + u;
       nxt[u] = (live && j < bound) ? __ldg(ftT + (size_t)j * D + d) : -1;
     }
-    bool done = false;
+    if (kCompact) {
+      unsigned pass = 0u;  // pads and slots past bound never pass
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-      const int f = cur[u];
-      if (j >= bound || __all_sync(kFull, f < 0)) {  // the rest are pad slots
-        done = true;
-        break;
+      for (int u = 0; u < kUnroll; ++u)
+        if (j0 + u < bound && cur[u] >= 0 && filter_test(s_filter, cur[u]))
+          pass |= 1u << u;
+      while (pass != 0u) {
+        const int u = __ffs(pass) - 1;
+        pass &= pass - 1;
+        int f = cur[0];
+#pragma unroll
+        for (int k = 1; k < kUnroll; ++k)
+          if (u == k) f = cur[k];
+        const int j = j0 + u;
+        take_hit<kCounts, kPhrase, kHits>(f, __ldg(fwT + (size_t)j * D + d), j,
+                                          s_term, s_pay, n, acc_s, acc_c, plog,
+                                          hits);
       }
-      if (f >= 0 && filter_test(s_filter, f)) {
-        const float w = __ldg(fwT + (size_t)j * D + d);
-        for (int e = lower_bound(s_term, n, f); e < n && s_term[e] == f; ++e) {
-          const int p = s_pay[e];
-          const int row = p >> 16;
-          if (!kPhrase || !(p & kPhraseFlag)) {
-            const int m = p & 0x7fff;
-            acc_s[row * kDocs] += w * (float)m;
-            if (kCounts) acc_c[row * kDocs] += (float)m;
-          } else if (plog->n < plog->cap) {
-            plog->log[plog->n++ * kDocs] = ((uint32_t)e << 16) | (uint32_t)j;
-          } else {
-            plog->overflow = true;
-          }
+      // the rest are pad slots once a whole slot row is
+      if (__all_sync(kFull, cur[kUnroll - 1] < 0)) break;
+    } else {
+      bool done = false;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u;
+        const int f = cur[u];
+        if (j >= bound || __all_sync(kFull, f < 0)) {  // the rest are pad slots
+          done = true;
+          break;
         }
+        if (f >= 0 && filter_test(s_filter, f))
+          take_hit<kCounts, kPhrase, kHits>(f, __ldg(fwT + (size_t)j * D + d),
+                                            j, s_term, s_pay, n, acc_s, acc_c,
+                                            plog, hits);
       }
+      if (done) break;
     }
-    if (done) break;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
   }
 }
 
-// Dynamic shared memory of a block, in bytes: the per-row sums (one or two
+// Dynamic shared memory of a block, in bytes: the per-row sums (n_sums
 // arrays of R x kDocs floats), the filter, the table (N terms + N
 // payloads), then `extra` bytes for the caller.
-__host__ __device__ inline size_t smem_bytes(int R, bool counts, int N,
+__host__ __device__ inline size_t smem_bytes(int R, int n_sums, int N,
                                              size_t extra) {
-  return (size_t)R * kDocs * 4 * (counts ? 2 : 1) + kFilterWords * 4 +
-         (size_t)N * 8 + extra;
+  return (size_t)R * kDocs * 4 * n_sums + kFilterWords * 4 + (size_t)N * 8 +
+         extra;
+}
+
+// Where a block's dynamic shared memory puts the pieces smem_bytes counts:
+// acc is this thread's column of the first sum array (array k starts at
+// acc + k * R * kDocs).
+struct Smem {
+  float* acc;
+  uint32_t* filter;
+  int* term;
+  int* pay;
+  unsigned char* extra;
+};
+
+__device__ inline Smem smem_layout(unsigned char* smem, int R, int n_sums,
+                                   int N) {
+  Smem s;
+  s.acc = reinterpret_cast<float*>(smem) + threadIdx.x;
+  s.filter = reinterpret_cast<uint32_t*>(smem + (size_t)R * kDocs * 4 * n_sums);
+  s.term = reinterpret_cast<int*>(s.filter + kFilterWords);
+  s.pay = s.term + N;
+  s.extra = reinterpret_cast<unsigned char*>(s.pay + N);
+  return s;
+}
+
+// Launch a sweep kernel over (row tiles, doc blocks), a doc block's row
+// tiles adjacent, with `smem` bytes of dynamic shared memory.
+template <class Kernel, class... Args>
+__host__ int launch_sweep(Kernel kernel, int n_tiles, int D, size_t smem,
+                 cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(n_tiles, (D + probe::kDocs - 1) / probe::kDocs);
+  kernel<<<grid, probe::kDocs, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
@@ -185,26 +280,29 @@ __host__ __device__ inline size_t smem_bytes(int R, bool counts, int N,
 // ---------------------------------------------------------------------
 
 constexpr int kBuildThreads = 1024;
-constexpr int kEntriesMax = kRowsMax * (32 + 16);  // R x (Q_MAX + P_MAX)
+constexpr int kEntriesMax = kRowsMax * (kQMax + 16);  // R x (Q_MAX + P_MAX)
 constexpr unsigned long long kPadKey = ~0ull >> 1;  // TERM_PAD << 32 | 0xffffffff
 
 // Where the tables of a batch live: terms [S, n_tiles, N], payloads [S,
 // n_tiles, N], then req [B] (required phrase positions per row), int32.
+// S is 2 for K1/K2 (title, body) and 1 for K3 (one section) and K4 (one
+// table both sections are swept against).
 struct Tables {
   int* term;
   int* pay;
   int* req;
 };
 
-__host__ inline Tables tables_at(int* buf, int n_tiles, int N) {
-  const size_t n = (size_t)2 * n_tiles * N;
+__host__ inline Tables tables_at(int* buf, int n_tiles, int N, int sections) {
+  const size_t n = (size_t)sections * n_tiles * N;
   return {buf, buf + n, buf + 2 * n};
 }
 
 // The sort key of candidate i = r * (Q + P) + c of row tile r0, section s
 // (kPadKey when it enters no table): a keyword column below the row's
 // active count that holds the row's first copy of its term, with the
-// term's multiplicity; or a valid phrase slot.
+// term's multiplicity; or a valid phrase slot. Negative ids and kTermPad
+// (the int32-max column pad) never enter.
 __device__ inline unsigned long long candidate_key(
     int i, int s, int r0, int B, int Q, int P, const int* __restrict__ tq,
     const int* __restrict__ qn, const int* __restrict__ qnb,
@@ -215,7 +313,8 @@ __device__ inline unsigned long long candidate_key(
   if (c >= Q) {
     const int p = c - Q;
     const int t = ph_ids[(size_t)row * P + p];
-    if (!(ph_valid[(size_t)row * P + p] > 0.f) || t < 0) return kPadKey;
+    if (!(ph_valid[(size_t)row * P + p] > 0.f) || t < 0 || t == kTermPad)
+      return kPadKey;
     return ((unsigned long long)(uint32_t)t << 32) |
            (uint32_t)((r << 16) | kPhraseFlag | p);
   }
@@ -224,7 +323,7 @@ __device__ inline unsigned long long candidate_key(
   int act = act_of != nullptr ? act_of[row] : Q;
   act = act < 0 ? 0 : (act > Q ? Q : act);
   const int t = trow[c];
-  if (c >= act || t < 0) return kPadKey;
+  if (c >= act || t < 0 || t == kTermPad) return kPadKey;
   int m = 0;
   for (int c2 = 0; c2 < act; ++c2) {
     if (trow[c2] == t) {
@@ -235,7 +334,8 @@ __device__ inline unsigned long long candidate_key(
   return ((unsigned long long)(uint32_t)t << 32) | (uint32_t)((r << 16) | m);
 }
 
-// One block per (row tile, section): each thread makes the keys of a run
+// One block per (row tile, section) (section 0 reads columns < qn, or all
+// Q when qn is null; section 1 those < qnb, or qn without it): each thread makes the keys of a run
 // of the tile's candidates, a block-wide scan compacts the real ones to
 // the front of shared memory, and they are bitonic-sorted (padded to the
 // next power of two of their count, not of the candidates'); the block
@@ -318,12 +418,14 @@ build_tables_kernel(const int* __restrict__ tq, int B, int Q,
   }
 }
 
-// Launch the build on `st` (P = 0: keyword entries only; req not written).
+// Launch the build of `sections` tables per row tile on `st` (P = 0:
+// keyword entries only; req written only when out.req is not null).
 __host__ inline int launch_build(const int* tq, int B, int Q, const int* qn,
                                  const int* qnb, const int* ph_ids,
                                  const float* ph_valid, int P, int R, int N,
-                                 Tables out, cudaStream_t st) {
-  if (R < 1 || R > kRowsMax || N != R * (Q + P) || N > kEntriesMax)
+                                 int sections, Tables out, cudaStream_t st) {
+  if (R < 1 || R > kRowsMax || Q < 1 || Q > kQMax || N != R * (Q + P) ||
+      N > kEntriesMax || sections < 1 || sections > 2)
     return (int)cudaErrorInvalidValue;
   int NP = 1;
   while (NP < N) NP <<= 1;
@@ -331,7 +433,7 @@ __host__ inline int launch_build(const int* tq, int B, int Q, const int* qn,
   cudaError_t e = cudaFuncSetAttribute(
       build_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + R - 1) / R, 2);
+  const dim3 grid((B + R - 1) / R, sections);
   build_tables_kernel<<<grid, kBuildThreads, smem, st>>>(
       tq, B, Q, qn, qnb, ph_ids, ph_valid, P, R, N, out);
   return (int)cudaGetLastError();

@@ -134,7 +134,7 @@ def _real_phrase(snap, rng) -> np.ndarray | None:
 
 #: the batches that stress the probe tables (adversarial_batch)
 ADVERSARIAL = ("dup", "every_row", "q32", "phrase_kw", "phrase_rep", "sentinel", "b13", "b80",
-               "log_full")
+               "log_full", "int_max")
 #: the kinds whose batch size is their point
 _FIXED_B = {"b13": 13, "b80": 80}
 
@@ -157,7 +157,12 @@ def adversarial_batch(index, kind: str, seed: int, df=None, snap=None, b: int = 
       log_full    one real 2-3 term phrase in every row: at B=16 a doc
                   holding one of its terms logs exactly the 16 phrase hits
                   K2's log keeps, one holding two overflows it and is
-                  checked by a rescan (csrc/mixed.cu kLog)."""
+                  checked by a rescan (csrc/mixed.cu kLog);
+      int_max     keyword columns past a row's count padded with int32 max
+                  (probe.TERM_PAD) instead of the unknown-word id, and an
+                  int32-max term inside the count of every 4th row: K4 and
+                  a qn-less K3 read every column, and no table may hold
+                  such an entry."""
     rng = np.random.default_rng(seed)
     n_words = index.n_words
     pr = None if df is None else df / df.sum()
@@ -212,6 +217,8 @@ def adversarial_batch(index, kind: str, seed: int, df=None, snap=None, b: int = 
             ids = ph[0] + draw(n)
         elif kind == "sentinel":
             ids = [] if i % 4 == 1 else ([n_words] + draw(n - 1) if i % 4 == 3 else draw(n))
+        elif kind == "int_max":
+            ids = [probe.TERM_PAD] + draw(n - 1) if i % 4 == 1 else draw(n)
         else:
             ids = draw(n)
         rows.append([int(t) for t in ids[:q]])
@@ -223,6 +230,8 @@ def adversarial_batch(index, kind: str, seed: int, df=None, snap=None, b: int = 
         ph_valid[i, : len(valid)] = valid
     pn = (ph_valid > 0).sum(1).astype(np.int32)
     out, perm = rows_batch(index, rows, q, extra=pn)
+    if kind == "int_max":
+        out["term_ids"][out["term_ids"] == n_words] = probe.TERM_PAD
     out.update(ph_ids=ph_ids[perm], ph_valid=ph_valid[perm], pn=pn[perm])
     return out
 
@@ -234,14 +243,20 @@ def to_device(batch: dict, device) -> dict:
     }
 
 
-def tables_agree(batch: dict, phrases: bool) -> bool:
-    """The probe tables the K1 (or, with phrases, K2) entry point builds on
-    the card equal, entry for entry, their plain version's
-    (probe.cuda_tables vs probe.plain_tables) for a to_device() batch."""
-    args = [batch["term_ids"], batch["qn"], batch["qnb"] if batch["split"] else None]
+def tables_agree(batch: dict, phrases: bool = False, one: str | None = None) -> bool:
+    """The probe tables an entry point builds on the card equal, entry for
+    entry, their plain version's (probe.cuda_tables vs probe.plain_tables)
+    for a to_device() batch: K1's (or, with phrases, K2's) title and body
+    tables, or with one="K3" K3's one table (columns < qn), with one="K4"
+    K4's shared table (all columns)."""
+    if one is not None:
+        qn = batch["qn"] if one == "K3" else None
+        args, kw = [batch["term_ids"], qn, None], {"sections": 1}
+    else:
+        args, kw = [batch["term_ids"], batch["qn"], batch["qnb"] if batch["split"] else None], {}
     if phrases:
         args += [batch["ph_ids"], batch["ph_valid"]]
-    got, want = probe.cuda_tables(*args), probe.plain_tables(*args)
+    got, want = probe.cuda_tables(*args, **kw), probe.plain_tables(*args, **kw)
     return (
         got[2] == want[2] and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         and (want[3] is None or torch.equal(got[3], want[3]))

@@ -10,10 +10,12 @@ pallas_fused_final_scores. For one query batch:
     final       = -inf where count_title + count_body == 0
 
 `fused_final_scores` is the wrapper: on CUDA tensors it launches the
-hand-written kernel (csrc/fused.cu) or raises; on CPU tensors it runs
-`plain_fused_final_scores` (two plain section sweeps + finalize_scores),
-which is also the on-card reference. Production keeps the unfused keyword
-path (models/blended.py); ops/scoring.py score_queries_fused drives this one.
+hand-written kernel (csrc/fused.cu: the build of one probe table per row
+tile, probe.py, then both sections' sweeps against it and the finalize) or
+raises; on CPU tensors it runs `plain_fused_final_scores` (two plain
+section sweeps + finalize_scores), which is also the on-card reference.
+Production keeps the unfused keyword path (models/blended.py);
+ops/scoring.py score_queries_fused drives this one.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ import ctypes
 import torch
 
 from ...config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
-from .membership import Q_MAX, _check, pad_rows, plain_section_scores
+from . import probe
+from .membership import Q_MAX, _check, plain_section_scores
 
-#: topic categories the kernel's row tile holds (csrc/fused.cu kCMax)
+#: topic categories the kernel takes (csrc/fused.cu kCMax)
 C_MAX = 64
 
 #: launches of the CUDA kernel since the last reset
@@ -38,8 +41,9 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,  # mag_title, mag_body
     ctypes.c_void_p, ctypes.c_int,  # pagerankT, C
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # tq, B, Q
-    ctypes.c_void_p, ctypes.c_void_p,  # qmag, topic_probs
+    ctypes.c_void_p, ctypes.c_void_p,  # query_len, topic_probs
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,  # blend
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p,  # out
     ctypes.c_void_p,  # stream
 ]
@@ -88,10 +92,9 @@ def fused_final_scores(
     query_len: torch.Tensor,  # f32 [B]
     topic_probs: torch.Tensor,  # f32 [B, C]
 ) -> torch.Tensor:
-    """-> final [B, D] blended scores (-inf for non-candidates). Rows are
-    padded to a multiple of 8 as score_queries_fused pads them (terms with
-    int32 max, qlen with 1.0, topic_probs with 0) and sliced back. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    """-> final [B, D] blended scores (-inf for non-candidates). Every
+    column of term_ids is read (negative ids and int32 max never match).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if term_ids.device.type == "cpu":
         return plain_fused_final_scores(
             title_ftT, title_fwT, body_ftT, body_fwT, mag_title, mag_body,
@@ -123,11 +126,10 @@ def fused_final_scores(
         raise ValueError(f"Q={q} outside [1, {Q_MAX}]")
     if not 1 <= c <= C_MAX:
         raise ValueError(f"C={c} topic categories outside [1, {C_MAX}]")
-    b_pad = -(-b // 8) * 8
-    tq = pad_rows(term_ids, b_pad, torch.iinfo(torch.int32).max)
-    qmag = torch.sqrt(pad_rows(query_len, b_pad, 1.0))
-    tp = pad_rows(topic_probs, b_pad, 0.0)
-    out = torch.empty((b_pad, d), dtype=torch.float32, device=dev)
+    rows = probe.row_tile(b)
+    n = rows * q
+    tables = probe.scratch(b, rows, n, dev, sections=1)
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -135,11 +137,12 @@ def fused_final_scores(
             title_ftT.data_ptr(), title_fwT.data_ptr(), tt,
             body_ftT.data_ptr(), body_fwT.data_ptr(), tb, d,
             mag_title.data_ptr(), mag_body.data_ptr(), pagerankT.data_ptr(), c,
-            tq.data_ptr(), b_pad, q, qmag.data_ptr(), tp.data_ptr(),
-            W_PAGERANK, W_TITLE, W_BODY, SCORE_SCALE, out.data_ptr(), stream,
+            term_ids.data_ptr(), b, q, query_len.data_ptr(), topic_probs.data_ptr(),
+            W_PAGERANK, W_TITLE, W_BODY, SCORE_SCALE, tables.data_ptr(), rows, n,
+            out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed (cudaError {err})")
     global LAUNCHES
     LAUNCHES += 1
-    return out[:b]
+    return out

@@ -22,10 +22,10 @@ are sentinels (>= n_words or int32 max) that never match. qn/qnb (active
 term counts) and body_tmax (doc-sorted layout) only narrow the kernels'
 work: terms past a row's count are sentinels and slots past a block's tmax
 are pads, so the plain version, which ignores them, computes the same
-result. K1 reads its query terms through the probe tables of probe.py
-(terms past qn leave the title table, past qnb the body table); K3 compares
-against a 32-row term tile bounded per 8 rows by qn (rows sorted
-descending).
+result. Both kernels read their query terms through the probe tables of
+probe.py: K1 through a title table (terms past qn leave it) and a body
+table (past qnb), K3 through one table per row tile (terms past qn leave
+it). Rows need no order and no padding.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from . import probe
 
 #: granularity of body_tmax (device_index DOC_BLOCK)
 TMAX_BLOCK = 512
-#: kernel limits (csrc/common.cuh kQMax)
+#: query term columns the kernels take (csrc/probe.cuh kQMax)
 Q_MAX = 32
 
 #: launches of the CUDA kernels since the last reset (each wrapper adds one
@@ -61,12 +61,14 @@ _ARGTYPES_TABLES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # term_ids, B, Q
     ctypes.c_void_p, ctypes.c_void_p,  # qn, qnb
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # rows, entries, table scratch
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, entries, sections
+    ctypes.c_void_p,  # table scratch
     ctypes.c_void_p,  # stream
 ]
 _ARGTYPES_1SEC = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ftT, fwT, T, D
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # tq, B, Q, qn_blk
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # tq, B, Q, qn
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p, ctypes.c_void_p,  # outs
     ctypes.c_void_p,  # stream
 ]
@@ -141,11 +143,6 @@ def plain_forward_scores_2sec(
 # --------------------------------------------------------------------- #
 
 
-def _qn_blocks(qn: torch.Tensor, q: int, b_block: int = 8) -> torch.Tensor:
-    """Per-8-row block max active term count, int32 [B // 8]."""
-    return qn.view(-1, b_block).amax(dim=1).clamp(0, q).to(torch.int32).contiguous()
-
-
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
     if t.dtype != dtype or t.dim() != ndim or t.device != device:
         raise ValueError(
@@ -161,16 +158,6 @@ def _int32(x: torch.Tensor, name: str, b: int, device) -> torch.Tensor:
     if x.shape != (b,) or x.device != device:
         raise ValueError(f"{name}: want [{b}] on {device}, got {tuple(x.shape)} on {x.device}")
     return x.to(torch.int32).contiguous()
-
-
-def pad_rows(x: torch.Tensor, b_pad: int, value) -> torch.Tensor:
-    """Row-pad a [B, ...] tensor to b_pad rows with `value`."""
-    b = x.shape[0]
-    if b == b_pad:
-        return x.contiguous()
-    out = torch.full((b_pad,) + tuple(x.shape[1:]), value, dtype=x.dtype, device=x.device)
-    out[:b] = x
-    return out
 
 
 def forward_scores_2sec(
@@ -253,12 +240,13 @@ def forward_scores(
     ftT: torch.Tensor,  # int32 [T, D]
     fwT: torch.Tensor,  # f32 [T, D]
     term_ids: torch.Tensor,  # int32 [B, Q]
-    qn: torch.Tensor | None = None,  # int32 [B] active term counts (sorted desc)
+    qn: torch.Tensor | None = None,  # int32 [B] active term counts
     *,
     emit_counts: bool = True,
 ):
     """K3: one section -> (score [B, D], count [B, D] | None). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel (its table
+    build, then the sweep)."""
     if term_ids.device.type == "cpu":
         score, count = plain_section_scores(ftT, fwT, term_ids)
         return score, (count if emit_counts else None)
@@ -274,23 +262,23 @@ def forward_scores(
         raise ValueError("forward tiles disagree on [T, D]")
     if not 1 <= q <= Q_MAX:
         raise ValueError(f"Q={q} outside [1, {Q_MAX}]")
-    if qn is None:
-        qn = torch.full((b,), q, dtype=torch.int32, device=dev)
-    b_pad = -(-b // 8) * 8
-    tq = pad_rows(term_ids, b_pad, torch.iinfo(torch.int32).max)
-    qn_blk = _qn_blocks(pad_rows(qn.to(torch.int32), b_pad, 0), q)
-    score = torch.empty((b_pad, d), dtype=torch.float32, device=dev)
+    if qn is not None:
+        qn = _int32(qn, "qn", b, dev)
+    rows = probe.row_tile(b)
+    n = rows * q
+    tables = probe.scratch(b, rows, n, dev, sections=1)
+    score = torch.empty((b, d), dtype=torch.float32, device=dev)
     count = torch.empty_like(score) if emit_counts else None
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ss_membership1(
-            ftT.data_ptr(), fwT.data_ptr(), t, d, tq.data_ptr(), b_pad, q,
-            qn_blk.data_ptr(), score.data_ptr(),
-            None if count is None else count.data_ptr(), stream,
+            ftT.data_ptr(), fwT.data_ptr(), t, d, term_ids.data_ptr(), b, q,
+            None if qn is None else qn.data_ptr(), tables.data_ptr(), rows, n,
+            score.data_ptr(), None if count is None else count.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"one-section membership kernel launch failed (cudaError {err})")
     global LAUNCHES_1SEC
     LAUNCHES_1SEC += 1
-    return score[:b], None if count is None else count[:b]
+    return score, count

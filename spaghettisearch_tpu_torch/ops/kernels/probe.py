@@ -1,10 +1,13 @@
-"""The probe tables K1 and K2 read, and a PyTorch walk of those kernels.
+"""The probe tables K1-K4 read, and a PyTorch walk of those kernels.
 
-K1 and K2 (csrc/membership.cu, csrc/mixed.cu) do not compare every slot of
-a doc with every query term. Per section and per row tile, a small kernel
-(csrc/probe.cuh build_tables_kernel, launched by the K1 and K2 entry
-points) first builds one table of the distinct query terms, sorted. Each
-entry is one (term, row) pair, int32 term + int32 payload:
+K1 and K3 (csrc/membership.cu), K2 (csrc/mixed.cu) and K4 (csrc/fused.cu)
+do not compare every slot of a doc with every query term. Per section and
+per row tile, a small kernel (csrc/probe.cuh build_tables_kernel, launched
+by each entry point) first builds one table of the distinct query terms,
+sorted. K1 and K2 build a title and a body table; K3 one table for its one
+section; K4 one table that both sections are swept against (it reads all Q
+columns and has no hot split). Each entry is one (term, row) pair, int32
+term + int32 payload:
 
     keyword entry: payload = row << 16 | multiplicity   (1 .. Q)
     phrase entry:  payload = row << 16 | PHRASE | p     (K2 only)
@@ -16,7 +19,8 @@ row; a term at several positions of one row has one entry for each.
 Entries sort by (term, payload); pads (term TERM_PAD, payload -1) come
 last. Keyword columns at or past a row's active count (qn for the title,
 qnb for the body under the hot split) never enter: those are sentinels.
-Neither do negative ids.
+Neither do negative ids nor TERM_PAD (int32 max, a column pad), so a table
+holds only real entries.
 
 `build_tables` is the plain version of that build, in torch ops: the CPU
 tests reach it, and on the card the kernel's tables must equal it entry
@@ -30,10 +34,11 @@ rejects almost every slot with one shared-memory load; a slot that passes
 is found by a sorted search, and only its entries touch the rows they
 name.
 
-`walk_sections` runs the same algorithm with torch ops, slot row by slot
+`walk_sections` (K1, K2), `walk_section` (one section: K3) and
+`walk_fused` (K4) run the same algorithm with torch ops, slot row by slot
 row across the docs, so the CPU tests check the tables and the probe
-against the plain versions and the JAX package. It is a model of the
-kernels, not a fast path: the wrappers never call it.
+against the plain versions and the JAX package. They are a model of the
+kernels, not a fast path: the wrappers never call them.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ def build_tables(
     dev = term_ids.device
     s = active.shape[0]
     col = torch.arange(q, dtype=torch.int32, device=dev)
-    valid = (col < active[:, :, None]) & (term_ids >= 0)  # [S, B, Q]
+    valid = (col < active[:, :, None]) & (term_ids >= 0) & (term_ids != TERM_PAD)  # [S, B, Q]
     same = (term_ids[:, :, None] == term_ids[:, None, :]) & valid[:, :, None, :]
     mult = same.sum(-1, dtype=torch.int32)  # [S, B, Q]
     first = valid & ~same.tril(-1).any(-1)  # the row's first copy of the term
@@ -81,7 +86,7 @@ def build_tables(
     key = torch.where(first, (term_ids.to(torch.int64) << 32) | local | mult, PAD_KEY)
     if ph_ids is not None:
         p = ph_ids.shape[1]
-        keep = (ph_valid > 0) & (ph_ids >= 0)
+        keep = (ph_valid > 0) & (ph_ids >= 0) & (ph_ids != TERM_PAD)
         pos = local | PHRASE | torch.arange(p, dtype=torch.int64, device=dev)
         ph_key = torch.where(keep, (ph_ids.to(torch.int64) << 32) | pos, PAD_KEY)
         key = torch.cat((key, ph_key.expand(s, b, p)), dim=2)
@@ -93,57 +98,60 @@ def build_tables(
     return (key >> 32).to(torch.int32), (key & 0xFFFFFFFF).to(torch.int32)
 
 
-def scratch(b: int, rows: int, n: int, device) -> torch.Tensor:
-    """The int32 buffer the K1/K2 entry points build their tables in:
-    terms [2, n_tiles, n], payloads [2, n_tiles, n], then req [b]
-    (csrc/probe.cuh Tables)."""
-    return torch.empty(4 * -(-b // rows) * n + b, dtype=torch.int32, device=device)
+def scratch(b: int, rows: int, n: int, device, sections: int = 2) -> torch.Tensor:
+    """The int32 buffer an entry point builds its tables in: terms
+    [S, n_tiles, n], payloads [S, n_tiles, n], then req [b] (csrc/probe.cuh
+    Tables); S = 2 for K1/K2, 1 for K3/K4."""
+    return torch.empty(2 * sections * -(-b // rows) * n + b, dtype=torch.int32, device=device)
 
 
-def unpack(buf: torch.Tensor, b: int, rows: int, n: int):
+def unpack(buf: torch.Tensor, b: int, rows: int, n: int, sections: int = 2):
     """(terms, payloads, req) views of a scratch() buffer."""
-    m = 2 * -(-b // rows) * n
-    shape = (2, -(-b // rows), n)
+    m = sections * -(-b // rows) * n
+    shape = (sections, -(-b // rows), n)
     return buf[:m].view(shape), buf[m : 2 * m].view(shape), buf[2 * m :]
 
 
-def cuda_tables(term_ids, qn, qnb, ph_ids=None, ph_valid=None):
-    """The tables as the K1/K2 entry points build them on the card (the
-    kernel build_tables_kernel alone) -> (terms, payloads, rows, req or
-    None), to hold against plain_tables."""
+def cuda_tables(term_ids, qn, qnb, ph_ids=None, ph_valid=None, sections: int = 2):
+    """The tables as the entry points build them on the card (the kernel
+    build_tables_kernel alone): K1's (or, with phrases, K2's) title and
+    body tables, or with sections=1 K3's one table (columns < qn) or K4's
+    (qn None: all columns) -> (terms, payloads, rows, req or None), to hold
+    against plain_tables."""
     from . import membership
 
     b, q = term_ids.shape
     p = 0 if ph_ids is None else ph_ids.shape[1]
     rows = row_tile(b)
     n = rows * (q + p)
-    buf = scratch(b, rows, n, term_ids.device)
+    buf = scratch(b, rows, n, term_ids.device, sections)
     lib = membership.library().lib
     with torch.cuda.device(term_ids.device):
         err = lib.ss_probe_tables(
             term_ids.data_ptr(), b, q, None if qn is None else qn.data_ptr(),
             None if qnb is None else qnb.data_ptr(),
             None if ph_ids is None else ph_ids.data_ptr(),
-            None if ph_valid is None else ph_valid.data_ptr(), p, rows, n, buf.data_ptr(),
-            torch.cuda.current_stream(term_ids.device).cuda_stream,
+            None if ph_valid is None else ph_valid.data_ptr(), p, rows, n, sections,
+            buf.data_ptr(), torch.cuda.current_stream(term_ids.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"table build launch failed (cudaError {err})")
-    terms, pay, req = unpack(buf, b, rows, n)
+    terms, pay, req = unpack(buf, b, rows, n, sections)
     return terms, pay, rows, (req if p else None)
 
 
-def plain_tables(term_ids, qn, qnb, ph_ids=None, ph_valid=None):
+def plain_tables(term_ids, qn, qnb, ph_ids=None, ph_valid=None, sections: int = 2):
     """The tables of a K1 call (or, with phrases, a K2 call), built as its
     entry point builds them but with build_tables: the title reads columns
-    < qn, the body columns < qnb (the cold terms under the hot split; qn
-    without it). -> (terms, payloads, rows per tile, required phrase
-    positions [B] or None), as cuda_tables returns them."""
+    < qn (all Q when qn is None), the body columns < qnb (the cold terms
+    under the hot split; qn without it). With sections=1 only the first:
+    K3's table, or K4's with qn None. -> (terms, payloads, rows per tile,
+    required phrase positions [B] or None), as cuda_tables returns them."""
     b, q = term_ids.shape
     if qn is None:
         qn = torch.full((b,), q, dtype=torch.int32, device=term_ids.device)
     body = qn if qnb is None else qnb
-    active = torch.stack([qn.to(torch.int32), body.to(torch.int32)])
+    active = torch.stack([qn.to(torch.int32), body.to(torch.int32)])[:sections]
     rows = row_tile(b)
     terms, pay = build_tables(term_ids, active, rows, ph_ids, ph_valid)
     return terms, pay, rows, (None if ph_ids is None else phrase_required(ph_valid))
@@ -279,3 +287,34 @@ def walk_sections(
         bs = bs + torch.where(b_ok, bw, 0.0)
         tc = tc + (t_ok | b_ok).float()
     return ts, tc, bs, bc
+
+
+def walk_fused(
+    title_ftT, title_fwT, body_ftT, body_fwT,
+    terms, pay,  # int32 [1, n_tiles, N]: the one shared table per row tile
+    b: int, rows: int,
+    mag_title, mag_body,  # f32 [D]
+    pagerankT,  # f32 [C, D]
+    query_len,  # f32 [B]
+    topic_probs,  # f32 [B, C]
+    weights,  # (w_pagerank, w_title, w_body, scale)
+) -> torch.Tensor:
+    """K4 walked with torch ops on CPU tensors -> final [B, D]: both
+    sections swept against the one table, candidacy where some slot of
+    either section matched the row (a zero weight included), then the
+    kernel's finalize, one correctly rounded f32 operation at a time in its
+    order (sqd summed over c in order)."""
+    ts, tc, _ = walk_section(title_ftT, title_fwT, terms[0], pay[0], b, rows)
+    bs, bc, _ = walk_section(body_ftT, body_fwT, terms[0], pay[0], b, rows)
+    w_pr, w_title, w_body, scale = (torch.tensor(w, dtype=torch.float32) for w in weights)
+    qmag = torch.sqrt(query_len)[:, None]
+
+    def norm(s, mag):
+        n = s / (mag[None, :] * qmag)
+        return torch.where(torch.isnan(n), 0.0, n)
+
+    sqd = torch.zeros_like(ts)
+    for c in range(pagerankT.shape[0]):
+        sqd = sqd + topic_probs[:, c, None] * pagerankT[c][None, :]
+    final = (w_pr * sqd + w_title * norm(ts, mag_title) + w_body * norm(bs, mag_body)) * scale
+    return torch.where((tc > 0) | (bc > 0), final, -float("inf"))

@@ -3,7 +3,10 @@ package: K4's plain version (the wrapper's CPU route) vs
 pallas_fused_final_scores in interpret mode, and the port's
 score_queries_fused vs the JAX one, with topics off (C=1) and a seeded C=3
 topic blend, batches that are not a multiple of 8, an idf-zero posting (a
-candidate with score 0) and docs with magnitude 0 (NaN -> 0, +inf kept).
+candidate with score 0) and docs with magnitude 0 (NaN -> 0, +inf kept);
+and K4's probe algorithm (one table per row tile shared by both sections,
+walked with torch ops, then the kernel's finalize) vs both, on the
+adversarial batches of check.ADVERSARIAL and on an idf-zero posting.
 
 Scores within rtol=1e-6 (the JAX package's kernel-vs-twin bar,
 tests/test_scoring_paths.py); the -inf (non-candidate) and +inf sets exact;
@@ -20,6 +23,8 @@ import torch
 
 from spaghettisearch_tpu.ops.kernels.fused import pallas_fused_final_scores
 from spaghettisearch_tpu.ops.scoring import score_queries_fused as jax_fused
+from spaghettisearch_tpu_torch.config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
+from spaghettisearch_tpu_torch.ops.kernels import check, probe
 from spaghettisearch_tpu_torch.ops.kernels import fused as k4
 from spaghettisearch_tpu_torch.ops.scoring import score_queries_fused
 from test_torch_membership import (  # noqa: F401 — module fixtures
@@ -55,6 +60,12 @@ def _inputs(snap, jdx, b, c, seed):
     zw = _zero_weight_posting(snap)
     if zw is not None:
         term_ids[0] = [zw[0], n_words, n_words, n_words]
+    return (term_ids, *_doc_inputs(jdx, b, c, rng), zw)
+
+
+def _doc_inputs(jdx, b, c, rng):
+    """Magnitudes with zeros, qlen, and a [C, D] PageRank / [B, C] topic
+    blend (C=1: zero probabilities, topics off)."""
     d = jdx.n_docs_padded
     mag_t = np.array(jdx.mag_title)
     mag_b = np.array(jdx.mag_body)
@@ -67,7 +78,7 @@ def _inputs(snap, jdx, b, c, seed):
         tp = np.zeros((b, 1), np.float32)
     else:
         tp = rng.dirichlet(np.ones(c), b).astype(np.float32)
-    return term_ids, mag_t, mag_b, prT, qlen, tp, zw
+    return mag_t, mag_b, prT, qlen, tp
 
 
 def _col(jdx, doc):
@@ -138,3 +149,70 @@ def test_score_queries_fused_matches_jax(crawl_snap, bench_snap, which, doc_sort
         for dg, dw, sw in zip(ti[r], ji[r], js[r]):
             if np.isfinite(sw) and dg != dw:
                 assert abs(ref.get(int(dg), js[r][-1]) - sw) <= 1e-6 * max(abs(sw), 1e-9)
+
+
+def _pad_rows(x, b_pad, value):
+    out = np.full((b_pad,) + x.shape[1:], value, x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+def _walk_vs_plain_and_pallas(jdx, tdx, term_ids, mag_t, mag_b, prT, qlen, tp):
+    """K4's algorithm on one batch: the shared table (equal to both tables
+    of K1's build without qn, holding only real entries), the walk, and
+    the walk held to the plain version and the interpret-mode Pallas
+    kernel (rows padded to 8 as the JAX wrapper pads them). -> the walk."""
+    tq = torch.from_numpy(term_ids)
+    b = tq.shape[0]
+    terms, pay, rows, _ = probe.plain_tables(tq, None, None, sections=1)
+    two = probe.plain_tables(tq, None, None)
+    for s in (0, 1):
+        assert torch.equal(two[0][s], terms[0]) and torch.equal(two[1][s], pay[0])
+    pairs = {(int(t), i) for i, r in enumerate(term_ids) for t in r if 0 <= t != probe.TERM_PAD}
+    assert int((terms != probe.TERM_PAD).sum()) == len(pairs)
+    t, bd = tdx.title.fwd, tdx.body.fwd
+    args = [torch.from_numpy(a) for a in (mag_t, mag_b, prT, qlen, tp)]
+    walk = probe.walk_fused(t.ftT, t.fwT, bd.ftT, bd.fwT, terms, pay, b, rows, *args,
+                            (W_PAGERANK, W_TITLE, W_BODY, SCORE_SCALE))
+    plain = k4.plain_fused_final_scores(t.ftT, t.fwT, bd.ftT, bd.fwT, args[0], args[1],
+                                        args[2], tq, args[3], args[4])
+    _same_final(walk.numpy(), plain.numpy())
+    b_pad = -(-b // 8) * 8
+    want = pallas_fused_final_scores(
+        jdx.title.fwd.ftT, jdx.title.fwd.fwT, jdx.body.fwd.ftT, jdx.body.fwd.fwT,
+        jnp.asarray(mag_t), jnp.asarray(mag_b), jnp.asarray(prT),
+        jnp.asarray(_pad_rows(term_ids, b_pad, tdx.n_words)),
+        jnp.asarray(_pad_rows(qlen, b_pad, 1.0)), jnp.asarray(_pad_rows(tp, b_pad, 0.0)),
+        interpret=True,
+    )
+    _same_final(walk.numpy(), np.asarray(want)[:b])
+    return walk.numpy()
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_fused_probe_walk_matches_plain_and_pallas(bench_snap, kind, c):
+    """K4's algorithm on the adversarial batches (multiplicity, one term in
+    every row, Q=32, sentinel rows, B=13, B=80, int32-max columns): every
+    column enters the one shared table except negative ids and int32 max;
+    the -inf and +inf sets exact, scores within rtol 1e-6."""
+    jdx, tdx = _indexes(bench_snap, doc_sort=True)
+    df = np.diff(bench_snap.body.post_offsets).astype(np.float64)
+    nb = check.adversarial_batch(tdx, kind, seed=17, df=df, snap=bench_snap)
+    term_ids = nb["term_ids"]
+    if kind == "int_max":
+        assert (term_ids == probe.TERM_PAD).any()
+    rng = np.random.default_rng(c + 17)
+    final = _walk_vs_plain_and_pallas(jdx, tdx, term_ids, *_doc_inputs(jdx, len(term_ids), c, rng))
+    assert np.isfinite(final).any() and (final == -np.inf).any()
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_fused_probe_walk_keeps_zero_weight_candidates(crawl_snap, c):
+    """An idf-zero posting sets the walk's hit mask: its doc is a ranked
+    candidate with a finite score; magnitude-0 docs keep +inf."""
+    jdx, tdx = _indexes(crawl_snap, doc_sort=False)
+    term_ids, mag_t, mag_b, prT, qlen, tp, zw = _inputs(crawl_snap, jdx, 13, c, seed=c + 9)
+    final = _walk_vs_plain_and_pallas(jdx, tdx, term_ids, mag_t, mag_b, prT, qlen, tp)
+    assert zw is not None and np.isfinite(final[0, _col(jdx, zw[1])])
+    assert (final == np.inf).any()

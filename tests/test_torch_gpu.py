@@ -1,8 +1,9 @@
 """GPU tests of the PyTorch port: each hand-written CUDA kernel (K1-K4)
 against its plain PyTorch version on the card, at small and at the main
-path's full widths (B=128, Q=4/32, P=16), K1 and K2 also on the batches
-that stress their probe tables, and the CUDA engine against the CPU engine
-on the reference blend, BM25, a custom blend and the CSR route.
+path's full widths (B=128, Q=4/32, P=16), all four also on the batches
+that stress their probe tables (and each table build against its plain
+version), and the CUDA engine against the CPU engine on the reference
+blend, BM25, a custom blend and the CSR route.
 
 This file imports no jax: on the card run it as
 
@@ -28,6 +29,7 @@ from spaghettisearch_tpu_torch.ops.kernels import check
 from spaghettisearch_tpu_torch.ops.kernels import fused as k4
 from spaghettisearch_tpu_torch.ops.kernels import membership as k1
 from spaghettisearch_tpu_torch.ops.kernels import mixed as k2
+from spaghettisearch_tpu_torch.ops.kernels import probe
 from spaghettisearch_tpu_torch.retrieval import device_index as tdi
 from spaghettisearch_tpu_torch.retrieval.device_index import DeviceIndex
 from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
@@ -190,6 +192,54 @@ def test_fused_kernel_matches_plain(cuda, corpus, indexes, doc_sort, c, b, q):
     assert rep["candidates"] > 0
 
 
+@pytest.mark.parametrize("one", ["K3", "K4"])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_one_table_builds_match_plain_build(cuda, corpus, indexes, kind, one):
+    """The one table per row tile that K3 (columns < qn) and K4 (every
+    column) build equals its plain version entry for entry."""
+    idx = indexes[False]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=19, df=_df(corpus[1]), snap=corpus[1], b=128), cuda
+    )
+    assert check.tables_agree(batch, one=one)
+
+
+@pytest.mark.parametrize("section", ["title", "body"])
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_one_section_kernel_adversarial(cuda, corpus, indexes, kind, emit_counts, section):
+    """K3 on the adversarial batches (B=128 unless the kind fixes 13 or 80;
+    Q=4, Q=32 for q32; int32-max columns)."""
+    idx = indexes[True]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=21, df=_df(corpus[1]), snap=corpus[1], b=128), cuda
+    )
+    got = check.run_k3(idx, batch, emit_counts, section)
+    want = check.run_k3(idx, batch, emit_counts, section, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare_section(got, want)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+
+
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_fused_kernel_adversarial(cuda, corpus, indexes, kind, c):
+    """K4 on the adversarial batches, topics off (C=1) and a seeded C=8
+    blend."""
+    idx = indexes[True]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=23, df=_df(corpus[1]), snap=corpus[1], b=128), cuda
+    )
+    inputs = check.fused_inputs(idx, batch, c, seed=c)
+    got = check.run_k4(idx, batch, inputs)
+    want = check.run_k4(idx, batch, inputs, plain=True)
+    torch.cuda.synchronize()
+    rep = check.compare_final(got, want)
+    assert rep["ok"], rep
+    assert rep["candidates"] > 0
+
+
 def test_fused_kernel_keeps_inf_and_zero_weight_candidates(cuda, indexes):
     """mag 0 with a positive score keeps +inf, 0/0 becomes 0, and a
     zero-weight posting still makes its doc a candidate."""
@@ -222,11 +272,39 @@ def test_wrappers_reject_bad_inputs(cuda, indexes):
         k1.forward_scores_2sec(
             idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT, tq
         )
+    wide = torch.zeros((8, 40), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         k1.forward_scores_2sec(
-            idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT,
-            torch.zeros((8, 40), dtype=torch.int32, device=cuda),
+            idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT, wide
         )
+    with pytest.raises(ValueError):
+        k1.forward_scores(idx.body.fwd.ftT, idx.body.fwd.fwT, wide)
+    # K4 holds the tile's topic probabilities in shared memory: C <= C_MAX
+    d = idx.n_docs_padded
+    tq = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    c = k4.C_MAX + 1
+    args = (idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT,
+            idx.mag_title, idx.mag_body, torch.zeros((c, d), device=cuda), tq,
+            torch.ones(8, device=cuda), torch.zeros((8, c), device=cuda))
+    with pytest.raises(ValueError):
+        k4.fused_final_scores(*args)
+    with pytest.raises(ValueError):  # Q above the table's limit
+        k4.fused_final_scores(*args[:6], idx.pagerankT[:1].contiguous(), wide, args[8],
+                              torch.zeros((8, 1), device=cuda))
+    # and its entry point refuses them itself, before any launch
+    rows, out = 8, torch.empty((8, d), device=cuda)
+    tables = probe.scratch(8, rows, rows * 4, cuda, sections=1)
+    lib = k4.library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for cc, q in ((c, 4), (1, k1.Q_MAX + 1)):
+        err = lib.ss_fused(
+            *(a.data_ptr() for a in args[:2]), args[0].shape[0],
+            *(a.data_ptr() for a in args[2:4]), args[2].shape[0], d,
+            args[4].data_ptr(), args[5].data_ptr(), args[6].data_ptr(), cc,
+            tq.data_ptr(), 8, q, args[8].data_ptr(), args[9].data_ptr(),
+            0.33, 0.38, 0.29, 100.0, tables.data_ptr(), rows, rows * q, out.data_ptr(), stream,
+        )
+        assert err != 0, (cc, q)
 
 
 def _same_up_to_ties(got, want) -> bool:

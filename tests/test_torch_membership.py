@@ -5,8 +5,9 @@ forward_section_scores, with the per-block q bound, the hot split, both
 count variants and the doc-sorted T bound; K1's probe algorithm (its
 wrapper's tables, walked with torch ops) vs both on adversarial batches;
 K3's (forward_scores) vs pallas_forward_scores with qn-sorted rows and both
-count variants; the port's exact_top_k vs the JAX one on ties, with and
-without doc_map.
+count variants; K3's probe algorithm (its one table per row tile, walked)
+vs its plain version and pallas_forward_scores on the adversarial batches;
+the port's exact_top_k vs the JAX one on ties, with and without doc_map.
 
 Scores within rtol=1e-6 (the JAX package's own kernel-vs-twin bar,
 tests/test_scoring_paths.py); counts, candidacy masks and ids exact. Inputs
@@ -193,7 +194,8 @@ def test_probe_walk_matches_plain_and_pallas(bench_snap, kind):
     terms, pay, rows, _ = probe.plain_tables(tq, qn, qnb)
     assert terms.shape[1] == -(-b // probe.ROWS_MAX)
     real = terms[0] != probe.TERM_PAD  # the title tables of every row tile
-    assert int(real.sum()) == len({(int(t), i) for i in range(b) for t in nb["term_ids"][i, : nb["qn"][i]]})
+    assert int(real.sum()) == len({(int(t), i) for i in range(b) for t in nb["term_ids"][i, : nb["qn"][i]]
+                                   if t != probe.TERM_PAD})
     if kind == "dup":
         assert int((pay[0][real] & 0x7FFF).max()) >= 2  # multiplicity carried
     bound = tdx.body.tmax_blocks.repeat_interleave(k1.TMAX_BLOCK)
@@ -216,3 +218,48 @@ def test_probe_walk_matches_plain_and_pallas(bench_snap, kind):
         np.testing.assert_allclose(g.numpy(), _np(w)[:b], rtol=RTOL)
     assert np.array_equal(walk[1].numpy(), _np(want[1])[:b])
     assert np.array_equal(walk[3].numpy(), _np(want[3])[:b])
+
+
+@pytest.mark.parametrize("section", ["title", "body"])
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_one_section_probe_walk_matches_plain_and_pallas(bench_snap, kind, section):
+    """K3's algorithm: one probe table per row tile (columns < qn, K1's
+    title table; all columns without qn), one section swept against it
+    with torch ops. Both tables hold only real entries (no int32-max
+    column), the qn one equals K1's title table, and the walk equals the
+    plain version and the interpret-mode Pallas kernel: counts exact,
+    scores within rtol 1e-6."""
+    jdx, tdx = _indexes(bench_snap, doc_sort=False)
+    df = np.diff(bench_snap.body.post_offsets).astype(np.float64)
+    nb = check.adversarial_batch(tdx, kind, seed=13, df=df, snap=bench_snap)
+    batch = check.to_device(nb, "cpu")
+    tq, qn = batch["term_ids"], batch["qn"]
+    b = tq.shape[0]
+    sec = getattr(tdx, section).fwd
+    plain = k1.plain_section_scores(sec.ftT, sec.fwT, tq)
+    k1_title = probe.plain_tables(tq, qn, batch["qnb"])
+    for active in (qn, None):
+        terms, pay, rows, _ = probe.plain_tables(tq, active, None, sections=1)
+        assert terms.shape == (1, -(-b // probe.ROWS_MAX), rows * tq.shape[1])
+        cols = nb["term_ids"] if active is None else [r[:n] for r, n in zip(nb["term_ids"], nb["qn"])]
+        pairs = {(int(t), i) for i, r in enumerate(cols) for t in r if 0 <= t != probe.TERM_PAD}
+        real = terms[0] != probe.TERM_PAD
+        assert int(real.sum()) == len(pairs)  # only real entries, one per (term, row)
+        assert bool(((pay[0] & 0x7FFF) > 0)[real].all())
+        if active is not None:
+            assert torch.equal(terms[0], k1_title[0][0]) and torch.equal(pay[0], k1_title[1][0])
+        score, count, _ = probe.walk_section(sec.ftT, sec.fwT, terms[0], pay[0], b, rows)
+        rep = check.compare_section((score, count), plain)
+        assert rep["ok"], (active is None, rep)
+        assert rep["candidates"] > 0
+    if kind == "int_max":  # the batch holds int32-max columns in and past qn
+        assert bool((tq == probe.TERM_PAD).any())
+    b_pad = -(-b // 8) * 8
+    jsec = getattr(jdx, section).fwd
+    want = pallas_forward_scores(
+        jsec.ftT, jsec.fwT, jnp.asarray(_pad_rows(nb["term_ids"], b_pad, tdx.n_words)),
+        jnp.asarray(_pad_rows(nb["qn"], b_pad, 0)), doc_block=512, emit_counts=True,
+        interpret=True,
+    )
+    np.testing.assert_allclose(score.numpy(), _np(want[0])[:b], rtol=RTOL)
+    assert np.array_equal(count.numpy(), _np(want[1])[:b])
