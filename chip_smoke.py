@@ -43,7 +43,23 @@ Phases (any failure raises and the script exits non-zero):
      plain path; K1 launched and the sparse-lane matcher ran;
   9. the exact CSR route: an index truncated by a lowered DOC_TERM_CAP
      answers keyword and phrase queries through score_csr, equal to the
-     untruncated dense plain path.
+     untruncated dense plain path;
+ 10. the offline build: a local site (ThreadingHTTPServer on 127.0.0.1) of
+     bench.py's pages for a 10,000-page corpus (corpus.render_pages, a
+     fixed Last-Modified, and a home page linking /p0 and every page /p0
+     does not reach) and a 16-category ODP directory beside it; the port's
+     crawl CLI in a subprocess on the card (--odpURL, --topicPagerank,
+     --saveSnapshot) fetches and indexes every page with no fetch error,
+     its body postings equal an in-process build of the same pages, and a
+     topic-model QueryEngine on the card answers the query mix on the
+     crawled store equal to the plain path; the crawl's pages/s and the
+     PageRank step's ms are printed;
+ 11. PageRank at full size: the 100k-page corpus's link graph through
+     pagerank_power (its two categories) and pagerank_personalized (16
+     seeded categories), float32 on the card twice (bit-identical) and
+     float64 on the CPU once (the card within rtol 1e-5, atol 1e-9);
+     iterations, ms per build (CUDA events) and the bytes bound of one
+     iteration.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -55,6 +71,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import json
 import os
 import re
@@ -381,6 +398,71 @@ def library_calls(idx, n_words: int, batch: dict, want: list,
     return calls
 
 
+#: phase 10: the crawl's size (20 times the CLI's default of 500 pages),
+#: its ODP categories, and the time limit of the crawl subprocess
+CRAWL_PAGES = 10_000
+ODP_CATEGORIES = 16
+CRAWL_TIMEOUT_S = 600
+HTTP_DATE = "Thu, 01 Jan 2026 00:00:00 GMT"
+#: phase 11: the card's float32 ranks against float64 on the CPU
+PAGERANK_RTOL, PAGERANK_ATOL = 1e-5, 1e-9
+
+
+def crawl_site(n_pages: int, seed: int) -> dict[str, bytes]:
+    """bench.py's pages for an n_pages corpus by path, plus a home page `/`
+    linking /p0 and every page that /p0 does not reach, so that a crawl
+    from `/` reaches all of them."""
+    from collections import deque
+
+    from spaghettisearch_tpu_torch.corpus import render_pages
+
+    pages = render_pages(n_pages=n_pages, seed=seed)
+    kids = [[int(j) for j in re.findall(rb'href="/p(\d+)"', pages[f"/p{i}"])] for i in range(n_pages)]
+    seen, todo = {0}, deque([0])
+    while todo:
+        for j in kids[todo.popleft()]:
+            if j not in seen:
+                seen.add(j)
+                todo.append(j)
+    roots = [0] + [i for i in range(n_pages) if i not in seen]
+    links = "".join(f'<a href="/p{i}">p{i}</a>\n' for i in roots)
+    pages["/"] = (f"<html><head><title>site index</title></head><body><p>all pages</p>\n"
+                  f"{links}</body></html>").encode()
+    return pages
+
+
+def odp_directory(resource_base: str, n_pages: int, n_cat: int = ODP_CATEGORIES) -> dict[str, bytes]:
+    """A directory site shaped like tests/test_crawl.py's ODP fixture: a
+    seed page whose #triple list links n_cat categories; each category
+    page lists one subcategory and resource links (`li.listings h4 a`) to
+    pages of the crawled site at resource_base, whose titles make the
+    category's term profile."""
+    cats = [f"Topic{c:02d}" for c in range(n_cat)]
+    items = "".join(f'<li><a href="/{c}">{c}</a></li>' for c in cats)
+    site = {"/": f'<html><body><div class="container"><ul id="triple">{items}</ul></div>'
+                 f"</body></html>".encode()}
+    for k, c in enumerate(cats):
+        res = "".join(f'<li class="listings"><h4><a href="{resource_base}/p{j}">p{j}</a></h4></li>'
+                      for j in range(k, n_pages, n_pages // 8 + 1))
+        site[f"/{c}"] = (f'<html><body><div class="container"><ul id="triple"><li>'
+                         f'<a href="/{c}/More">More</a></li></ul><ul>{res}</ul></div></body>'
+                         f"</html>").encode()
+        site[f"/{c}/More"] = (f'<html><body><div class="container"><ul><li class="listings">'
+                              f'<h4><a href="{resource_base}/p{(7 * k + 3) % n_pages}">r</a></h4>'
+                              f"</li></ul></div></body></html>").encode()
+    return site
+
+
+def pagerank_bound_ms(n: int, e: int, c: int, n_vectors: int) -> float:
+    """The least time of one PageRank iteration on the card: its bytes over
+    the memory rate: the edge arrays (int32 sources and the int32 row
+    pointer), the [C, E] gather of float32 contributions, and n_vectors
+    float32 [C, N] vectors (read or written), each once; the per-node
+    out-degree weights (4 B each) too."""
+    nbytes = 4 * e + 4 * (n + 1) + 4 * c * e + 4 * n_vectors * c * n + 4 * n
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def build_all() -> list:
     """`make -C native` and one nvcc per CUDA source, all started together."""
     from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
@@ -399,6 +481,179 @@ def build_all() -> list:
             if re.search(r"Compiling entry|registers|spill|smem|Function properties", line):
                 say("#   " + line.strip())
     return built
+
+
+def crawl_phase(seed: int, smi: str, phase_launches: dict) -> dict:
+    """Phase 10 (see the module docstring). -> the crawl's report."""
+    from spaghettisearch_tpu_torch.corpus import make_queries
+    from spaghettisearch_tpu_torch.crawl.localsite import LocalSite
+    from spaghettisearch_tpu_torch.evaluation import compare_rankings
+    from spaghettisearch_tpu_torch.index.indexer import index_page
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
+    from spaghettisearch_tpu_torch.ops.pagerank import update_pagerank
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    t0 = time.perf_counter()
+    site_pages = crawl_site(CRAWL_PAGES, seed)
+    crawl_root = os.path.join(HERE, "build", "smoke_crawl")
+    shutil.rmtree(crawl_root, ignore_errors=True)
+    with LocalSite(site_pages, last_modified=HTTP_DATE) as site, \
+            LocalSite(odp_directory(site.base, CRAWL_PAGES)) as odp:
+        cmd = [sys.executable, "-m", "spaghettisearch_tpu_torch.cli.crawl",
+               "--startURL", site.base + "/", "--numPages", str(len(site_pages)),
+               "--db", os.path.join(crawl_root, "store"), "--odpURL", odp.base + "/",
+               "--topicPagerank", "--saveSnapshot", os.path.join(crawl_root, "snapshot"),
+               "--device", "cuda"]
+        out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                             timeout=CRAWL_TIMEOUT_S)
+        site_base, site_requests, odp_requests = site.base, site.requests, odp.requests
+    t_crawl = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"the crawl CLI failed ({out.returncode}): {out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if re.match(r"(Crawl|PageRank|ODP|Total|Snapshot|Updating|\{'crawl)", line):
+            say(f"# crawl CLI: {line.strip()} ({smi})")
+    visited = re.search(r"Total visited length: (\d+) \(indexed (\d+), errors (\d+)\)",
+                        out.stdout)
+    rate = re.search(r"Crawl: (\d+) pages indexed in ([\d.]+)s = ([\d.]+) pages/s", out.stdout)
+    pr_line = re.search(r"PageRank on \S+: (\d+) nodes, (\d+) edges, (\d+) categories, "
+                        r"(\d+) iterations in ([\d.]+) ms", out.stdout)
+    if not (visited and rate and pr_line):
+        raise RuntimeError(f"the crawl CLI's report is incomplete: {out.stdout[-3000:]}")
+    n_vis, n_idx, n_err = map(int, visited.groups())
+    if n_err or n_vis != len(site_pages) or n_idx != len(site_pages):
+        raise RuntimeError(f"crawl: visited {n_vis}, indexed {n_idx}, errors {n_err} of "
+                           f"{len(site_pages)} pages")
+    if int(pr_line.group(3)) != ODP_CATEGORIES:
+        raise RuntimeError(f"crawl: PageRank ran {pr_line.group(3)} ODP categories, "
+                           f"not {ODP_CATEGORIES}")
+    crawled = Database(os.path.join(crawl_root, "store"))
+    t1 = time.perf_counter()
+    ref_db = Database(None)
+    ts = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
+    with ref_db.bulk():
+        for path, html in site_pages.items():
+            index_page(ref_db, html, site_base + path, last_modified=ts)
+    t_inproc = time.perf_counter() - t1
+    raw_got = dict(crawled.inverted_raw("body").items())
+    raw_want = dict(ref_db.inverted_raw("body").items())
+    pos_got = {w: {d: p[1:] for d, p in row.items()} for w, row in crawled.inv_body.items()}
+    pos_want = {w: {d: p[1:] for d, p in row.items()} for w, row in ref_db.inv_body.items()}
+    if raw_got != raw_want or pos_got != pos_want:
+        raise RuntimeError("the crawled body postings differ from an in-process build")
+    n_post = sum(len(r) for r in raw_want.values())
+    say(f"# crawl: {len(site_pages)} pages fetched and indexed, no errors ({site_requests} "
+        f"site and {odp_requests} directory requests); body postings ({len(raw_want)} terms, "
+        f"{n_post} postings) equal an in-process build ({t_inproc:.1f}s, "
+        f"{len(site_pages) / t_inproc:.1f} pages/s on the host); {t_crawl:.1f}s with the CLI's start")
+    # PageRank again in this process, warm: bit-identical to the CLI's ranks
+    cli_ranks = dict(crawled.doc_rank.items())
+    warm = [update_pagerank(crawled, personalized=True, device="cuda") for _ in range(2)]
+    if dict(crawled.doc_rank.items()) != cli_ranks:
+        raise RuntimeError("PageRank of the crawled store differs from the crawl CLI's")
+    say(f"# crawled store: PageRank again in this process, warm: {warm[0]['iterations']} "
+        f"iterations in {warm[0]['ms']:.3f} / {warm[1]['ms']:.3f} ms, ranks bit-identical to "
+        f"the CLI's ({smi})")
+    crawl_snap = load_snapshot(os.path.join(crawl_root, "snapshot"))
+    topic = QueryEngine(crawled, snapshot=crawl_snap, device="cuda", use_topic_model=True)
+    topic.warmup()
+    crawl_q = make_queries(crawl_snap, crawled, 96, seed=seed + 2)
+    reset_launches()
+    got = topic.query_batch(crawl_q)
+    phase_launches["crawl_serving"] = launches()
+    with plain_kernels():
+        ref = topic.query_batch(crawl_q)
+    n_hits = check_ranked(crawl_q, got, ref, "crawled store")
+    parity = compare_rankings([[(r["Url"], r["FinalRank"]) for r in g] for g in got],
+                              [[(r["Url"], r["FinalRank"]) for r in w] for w in ref], k=10)
+    launched = phase_launches["crawl_serving"]["membership"] + phase_launches["crawl_serving"]["mixed"]
+    if launched == 0:
+        raise RuntimeError("the crawled store's queries launched no kernel")
+    say(f"# crawled store: topic-model engine on the card, {len(crawl_q)} queries equal the plain "
+        f"path ({n_hits} results; parity {parity.to_json()}); launches "
+        f"{phase_launches['crawl_serving']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    crawl_report = {
+        "pages": len(site_pages), "pages_per_s": float(rate.group(3)),
+        "crawl_s": float(rate.group(2)), "pagerank_ms": float(pr_line.group(5)),
+        "pagerank_nodes": int(pr_line.group(1)), "pagerank_edges": int(pr_line.group(2)),
+        "pagerank_iterations": int(pr_line.group(4)),
+        "pagerank_warm_ms": [w["ms"] for w in warm],
+        "pagerank_bound_ms_per_iter": pagerank_bound_ms(
+            int(pr_line.group(1)), int(pr_line.group(2)), ODP_CATEGORIES, 3),
+    }
+    say(f"# crawl report: {json.dumps(crawl_report)} ({smi})")
+    crawled.close()
+    return crawl_report
+
+
+def pagerank_phase(db, seed: int, smi: str) -> dict:
+    """Phase 11 (see the module docstring). -> the PageRank report."""
+    import numpy as np
+    import torch
+
+    from spaghettisearch_tpu_torch.ops import pagerank as pr
+
+    t0 = time.perf_counter()
+
+    node_list, e_src, e_dst, outdeg = pr._load_graph(db)
+    n_nodes, n_edges = len(node_list), len(e_src)
+    cats = sorted(db.topic_meta.keys())
+    n_pages = np.array([float(db.topic_meta.get(c)["numPages"]) for c in cats])
+    rng = np.random.default_rng(seed + 11)
+    pers = rng.random((16, n_nodes)) * (rng.random((16, n_nodes)) < 0.01)
+    pers[0] = 1.0
+    pers /= pers.sum(axis=1, keepdims=True)
+
+    def pagerank_run(model: str, device: str, dtype):
+        fn = pr.pagerank_power if model == "power" else pr.pagerank_personalized
+        extra = n_pages if model == "power" else pers
+        args_ = [torch.as_tensor(e_src, device=device), torch.as_tensor(e_dst, device=device),
+                 torch.as_tensor(outdeg, dtype=dtype, device=device),
+                 torch.as_tensor(extra, dtype=dtype, device=device), n_nodes]
+        stats: dict = {}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ranks = fn(*args_, stats=stats)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t = time.perf_counter()
+            ranks = fn(*args_, stats=stats)
+            ms = 1e3 * (time.perf_counter() - t)
+        return ranks.cpu().numpy(), stats["iterations"], ms
+
+    pagerank_report = {}
+    for model, c, n_vec in (("power", len(cats), 2), ("personalized", 16, 3)):
+        pagerank_run(model, "cuda", torch.float32)  # warm the allocator and the kernels
+        r1, it1, ms1 = pagerank_run(model, "cuda", torch.float32)
+        r2, it2, ms2 = pagerank_run(model, "cuda", torch.float32)
+        r64, it64, ms64 = pagerank_run(model, "cpu", torch.float64)
+        if not (np.array_equal(r1.view(np.uint32), r2.view(np.uint32)) and it1 == it2):
+            raise RuntimeError(f"pagerank_{model}: two runs on the card differ")
+        if not np.allclose(r1, r64, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL):
+            err = float(np.max(np.abs(r1 - r64) / np.maximum(np.abs(r64), 1e-30)))
+            raise RuntimeError(f"pagerank_{model}: float32 on the card differs from float64 "
+                               f"on the CPU (max rel err {err})")
+        bound = pagerank_bound_ms(n_nodes, n_edges, c, n_vec)
+        rel = float(np.max(np.abs(r1 - r64) / np.maximum(np.abs(r64), 1e-30)))
+        pagerank_report[model] = {
+            "nodes": n_nodes, "edges": n_edges, "categories": c, "iterations": it1,
+            "iterations_f64": it64, "ms": [ms1, ms2], "ms_per_iter": [ms1 / it1, ms2 / it2],
+            "bound_ms_per_iter": bound, "cpu_f64_ms": ms64, "max_rel_err_vs_f64": rel,
+        }
+        say(f"# pagerank_{model}: {n_nodes} nodes, {n_edges} edges, C={c}: {it1} iterations "
+            f"(f64: {it64}), {ms1:.3f} / {ms2:.3f} ms per build on the card "
+            f"({ms1 / it1:.4f} ms per iteration, bound {bound:.4f} ms by bytes), two runs "
+            f"bit-identical, within rtol {PAGERANK_RTOL} / atol {PAGERANK_ATOL} of float64 on the CPU "
+            f"({ms64:.1f} ms; max rel err {rel:.3g}) ({smi})")
+    say(f"# pagerank report: {json.dumps(pagerank_report)}; {time.perf_counter() - t0:.1f}s")
+    return pagerank_report
 
 
 def main() -> int:
@@ -780,6 +1035,10 @@ def main() -> int:
         f"{len(csr_q)} queries through score_csr ({csr_calls[0]} calls, {matcher[0]} CSR "
         f"matcher calls) equal the dense plain path ({n_hits} results); "
         f"{time.perf_counter() - t0:.1f}s")
+    # 10. the offline build: crawl CLI on the card over a local site
+    crawl_phase(args.seed, smi, phase_launches)
+    # 11. PageRank at full size on the card: the 100k corpus's link graph
+    pagerank_phase(db, args.seed, smi)
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

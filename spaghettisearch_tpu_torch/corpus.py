@@ -1,9 +1,12 @@
-"""Seeded benchmark-corpus writer that needs neither lxml nor jax.
+"""Seeded benchmark corpus, written as store rows or rendered as pages,
+with neither lxml nor jax.
 
-Writes, through this package's store.tables.Database (a copy of the JAX
-package's), the rows the JAX package's indexer (spaghettisearch_tpu/index/indexer.py index_page) writes
-for the pages of the benchmark corpus (bench.py build_bench_corpus): the
-same seeded draws in the same order —
+`write_corpus` writes, through this package's store.tables.Database (a
+copy of the JAX package's), the rows the JAX package's indexer
+(spaghettisearch_tpu/index/indexer.py index_page) writes for the pages of
+the benchmark corpus (bench.py build_bench_corpus), and `render_pages`
+renders those pages as bench.py does: the same seeded draws in the same
+order —
 
   - a vocabulary of n_vocab words `w%05d`, Zipf s=1.05 with the top 40
     terms dropped (the stopword-filtered head);
@@ -16,17 +19,18 @@ with their anchor tokens, body term frequencies), doc_summary (the visible
 body words), doc_children, raw and weighted `[normTF, pos...]` postings for
 title and body, and the word table. The text is generated, so no HTML is
 parsed: each vocabulary word is cleaned (laundry) once and token positions
-are computed with numpy. Departures from index_page, none of which the
-ranked path reads:
-  - anchor-text postings (indexer.py _index_anchors, which index a link's
-    text into the TARGET's title section with the -100 sentinel) are left
-    out, so titles hold only their own words;
+are computed with numpy. Departures from index_page:
+  - anchor text is left out: index_page reads a link's text as body words
+    of the linking page (after its paragraph) and indexes it into the
+    TARGET's title section with the -100 sentinel (_index_anchors); here
+    bodies hold only the paragraph and titles only their own words;
   - no raw HTML is cached (summaries come from doc_summary), and
     page_size is the UTF-8 length of the page's title and body text.
-doc_rank comes from a plain numpy power iteration (the same vector for
-every category, as the reference's decorative category loop gives); the
-idf census N = len(doc_rank) reads it and ranking with the topic model off
-does not. Then the term weighting pass runs (ops/weighting.py).
+doc_rank comes from this package's update_pagerank (ops/pagerank.py, the
+reference model, on `device`), as bench.py's corpus gets it from the JAX
+package's: the same quirk-mode vector for the General and Science
+categories. The idf census N = len(doc_rank) reads it. Then the term
+weighting pass runs (ops/weighting.py).
 """
 
 from __future__ import annotations
@@ -36,11 +40,11 @@ from datetime import datetime, timezone
 
 import numpy as np
 
-from .config import PAGERANK_DAMPING
 from .store.docinfo import DocInfo
 from .store.tables import Database
 from .text.laundry import laundry
 from .utils.hashing import md5_hex
+from .ops.pagerank import update_pagerank
 from .ops.weighting import update_term_weights
 
 BASE_URL = "http://bench.local"
@@ -82,18 +86,47 @@ def _section_rows(doc: np.ndarray, tok: np.ndarray, n_docs: int) -> tuple:
     return run_term.tolist(), run_doc.tolist(), ntf.tolist(), plists, doc_runs, run_len
 
 
-def _pagerank(n: int, src: np.ndarray, dst: np.ndarray, iters: int = 50) -> np.ndarray:
-    """Plain damped power iteration over the link graph (uniform teleport,
-    dangling mass spread uniformly)."""
-    outdeg = np.bincount(src, minlength=n).astype(np.float64)
-    r = np.full(n, 1.0 / n)
-    d = PAGERANK_DAMPING
-    for _ in range(iters):
-        share = np.where(outdeg > 0, r / np.maximum(outdeg, 1.0), 0.0)
-        inherited = np.bincount(dst, weights=share[src], minlength=n)
-        dangling = r[outdeg == 0].sum()
-        r = (1.0 - d) / n + d * (inherited + dangling / n)
-    return r
+def _draws(n_pages: int, n_vocab: int, seed: int) -> tuple:
+    """The seeded draws of bench.py build_bench_corpus, in its order: the
+    vocabulary, body and title lengths, body and title word ids, link
+    counts and link targets."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i:05d}" for i in range(n_vocab)]
+    probs = zipf_probs(n_vocab)
+    body_lens = rng.integers(40, 120, n_pages)
+    title_lens = rng.integers(2, 6, n_pages)
+    body_words = rng.choice(n_vocab, size=int(body_lens.sum()), p=probs)
+    title_words = rng.choice(n_vocab, size=int(title_lens.sum()), p=probs)
+    n_links = rng.integers(0, 8, n_pages)
+    link_targets = rng.integers(0, n_pages, int(n_links.sum()))
+    return vocab, body_lens, title_lens, body_words, title_words, n_links, link_targets
+
+
+def render_pages(n_pages: int = 100_000, n_vocab: int = 30_000, seed: int = 0) -> dict[str, bytes]:
+    """The HTML pages bench.py build_bench_corpus indexes, by path: page i
+    is `/p{i}`, its title and body are the seeded draws, and its k-th link
+    goes to `/p{j}` with the page's body word k mod len as anchor text."""
+    vocab, body_lens, title_lens, body_words, title_words, n_links, link_targets = (
+        _draws(n_pages, n_vocab, seed)
+    )
+    pages = {}
+    bo = to = lo = 0
+    for i in range(n_pages):
+        bw = body_words[bo : bo + int(body_lens[i])]
+        tw = title_words[to : to + int(title_lens[i])]
+        links = link_targets[lo : lo + int(n_links[i])]
+        bo += int(body_lens[i])
+        to += int(title_lens[i])
+        lo += int(n_links[i])
+        anchors = "".join(
+            f'<a href="/p{j}">{vocab[bw[k % len(bw)]]}</a>\n' for k, j in enumerate(links)
+        )
+        pages[f"/p{i}"] = (
+            f"<html><head><title>{' '.join(vocab[w] for w in tw)}</title>"
+            f"</head><body><p>{' '.join(vocab[w] for w in bw)}</p>\n"
+            f"{anchors}</body></html>"
+        ).encode()
+    return pages
 
 
 def write_corpus(
@@ -102,21 +135,16 @@ def write_corpus(
     n_vocab: int = 30_000,
     seed: int = 0,
     log=None,
+    device: str = "cuda",
 ) -> Database:
     """Write the seeded corpus into a fresh Database at `root` (None = in
-    memory) and run term weighting. Returns the open Database."""
+    memory), run PageRank on `device` and term weighting. Returns the open
+    Database."""
     say = log or (lambda msg: None)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(seed)
-    vocab = [f"w{i:05d}" for i in range(n_vocab)]
-    probs = zipf_probs(n_vocab)
-    # the draws of bench.py build_bench_corpus, in its order
-    body_lens = rng.integers(40, 120, n_pages)
-    title_lens = rng.integers(2, 6, n_pages)
-    body_words = rng.choice(n_vocab, size=int(body_lens.sum()), p=probs)
-    title_words = rng.choice(n_vocab, size=int(title_lens.sum()), p=probs)
-    n_links = rng.integers(0, 8, n_pages)
-    link_targets = rng.integers(0, n_pages, int(n_links.sum()))
+    vocab, body_lens, title_lens, body_words, title_words, n_links, link_targets = (
+        _draws(n_pages, n_vocab, seed)
+    )
 
     # clean each vocabulary word once: term id per vocab id (-1 = dropped)
     terms: list[str] = []
@@ -159,7 +187,6 @@ def write_corpus(
     np.cumsum(title_lens, out=title_off[1:])
     children: list[list[int]] = []
     parents: list[dict[str, list[str]]] = [{} for _ in range(n_pages)]
-    edge_src, edge_dst = [], []
     for i in range(n_pages):
         tg = link_targets[link_off[i] : link_off[i + 1]].tolist()
         bw = body_words[body_off[i] : body_off[i + 1]]
@@ -171,8 +198,6 @@ def write_corpus(
                 parents[j].setdefault(doc_hash[i], []).extend(
                     [terms[t]] if t >= 0 else []
                 )
-        edge_src.extend([i] * len(kids))
-        edge_dst.extend(kids)
 
     b_term, b_doc, b_ntf, b_pos, b_runs, b_len = sections["body"]
     with db.bulk():
@@ -215,13 +240,11 @@ def write_corpus(
             ))
             db.doc_children.set(doc_hash[i], kids)
             db.doc_summary.set(doc_hash[i], body_text)
-        rank = _pagerank(
-            n_pages, np.asarray(edge_src, np.int64), np.asarray(edge_dst, np.int64)
-        )
-        for i, r in enumerate(rank.tolist()):
-            db.doc_rank.set(doc_hash[i], {"General": r, "Science": r})
     db.note_doc_write()
     say(f"store rows written in {time.perf_counter() - t0:.1f}s")
+    pr = update_pagerank(db, device=device)
+    say(f"pagerank ({pr['nodes']} nodes, {pr['edges']} edges, {pr['iterations']} "
+        f"iterations on {device}) done in {time.perf_counter() - t0:.1f}s")
     update_term_weights(db, "title")
     update_term_weights(db, "body")
     db.flush()

@@ -39,7 +39,7 @@ def crawl_db():
 
 @pytest.fixture(scope="module")
 def bench_db():
-    return write_corpus(None, n_pages=120, n_vocab=600, seed=4)
+    return write_corpus(None, n_pages=120, n_vocab=600, seed=4, device="cpu")
 
 
 def _rows(scores, ids):

@@ -390,3 +390,99 @@ def test_custom_blend_and_csr_on_cuda_match_cpu(cuda, corpus, monkeypatch):
     k1.reset_launches()
     _engines_agree(eng_gpu, QueryEngine(db, snapshot=snap, device="cpu"), parsed, queries)
     assert k1.LAUNCHES == 0 and k1.LAUNCHES_1SEC == 0
+
+
+# --- the offline build path: PageRank and the crawl CLI on the card ------------
+
+def _pagerank_inputs(model: str, n: int = 3000, c: int = 16, seed: int = 0):
+    """A seeded 3,000-node graph (0-7 uniform out-links per node, plus hubs
+    with long in-edge runs and dangling nodes), destination-sorted, and the
+    model's per-category input (numPages, or [C, N] personalization)."""
+    rng = np.random.default_rng(seed)
+    n_links = rng.integers(0, 8, n)
+    dst = rng.integers(0, n, int(n_links.sum()))
+    dst[rng.random(len(dst)) < 0.05] = rng.integers(0, 8)  # hubs
+    src = np.repeat(np.arange(n), n_links)
+    order = np.argsort(dst, kind="stable")
+    outdeg = n_links.astype(np.float64)
+    if model == "power":
+        extra = np.array([float(n), n / 2.0])
+    else:
+        extra = rng.random((c, n)) * (rng.random((c, n)) < 0.05)
+        extra[0] = 1.0
+        extra /= extra.sum(axis=1, keepdims=True)
+    return src[order].astype(np.int32), dst[order].astype(np.int32), outdeg, extra
+
+
+def _pagerank(model, inputs, device, dtype):
+    from spaghettisearch_tpu_torch.ops import pagerank as pr
+
+    src, dst, outdeg, extra = inputs
+    fn = pr.pagerank_power if model == "power" else pr.pagerank_personalized
+    stats: dict = {}
+    ranks = fn(torch.as_tensor(src, device=device), torch.as_tensor(dst, device=device),
+               torch.as_tensor(outdeg, dtype=dtype, device=device),
+               torch.as_tensor(extra, dtype=dtype, device=device), len(outdeg), stats=stats)
+    return ranks.cpu().numpy(), stats["iterations"]
+
+
+@pytest.mark.parametrize("model", ["power", "personalized"])
+def test_pagerank_on_cuda_matches_cpu_float64(cuda, model):
+    inputs = _pagerank_inputs(model)
+    got, _ = _pagerank(model, inputs, cuda, torch.float32)
+    want, _ = _pagerank(model, inputs, "cpu", torch.float64)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("model", ["power", "personalized"])
+def test_pagerank_on_cuda_is_repeatable(cuda, model):
+    """The segmented sum adds each node's in-edges in one order: two runs
+    give bit-identical float32 ranks after the same iteration count."""
+    inputs = _pagerank_inputs(model, seed=1)
+    (a, ia), (b, ib) = (_pagerank(model, inputs, cuda, torch.float32) for _ in range(2))
+    assert ia == ib and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def test_crawl_cli_on_cuda(cuda, tmp_path):
+    """The crawl CLI on the card over a 200-page local site and a small ODP
+    directory: every page indexed, topic PageRank on the card equal to
+    float64 on the CPU, and the saved snapshot serves on the card."""
+    from spaghettisearch_tpu_torch.cli import crawl as crawl_cli
+    from spaghettisearch_tpu_torch.corpus import render_pages
+    from spaghettisearch_tpu_torch.crawl.localsite import LocalSite
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
+    from spaghettisearch_tpu_torch.ops.pagerank import update_pagerank
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    pages = render_pages(n_pages=200, n_vocab=2000, seed=3)
+    pages["/"] = ("<html><body>" + "".join(f'<a href="/p{i}">p</a>' for i in range(200))
+                  + "</body></html>").encode()
+    with LocalSite(pages, last_modified="Thu, 01 Jan 2026 00:00:00 GMT") as site:
+        cats = "".join(f'<li><a href="/C{k}">C{k}</a></li>' for k in range(4))
+        odp = {"/": f'<html><body><div class="container"><ul id="triple">{cats}</ul></div>'
+                    f"</body></html>".encode()}
+        for k in range(4):
+            res = "".join(f'<li class="listings"><h4><a href="{site.base}/p{j}">r</a></h4></li>'
+                          for j in range(k, 200, 23))
+            odp[f"/C{k}"] = (f'<html><body><div class="container"><ul>{res}</ul></div>'
+                             f"</body></html>").encode()
+        with LocalSite(odp) as directory:
+            crawl_cli.main(["--startURL", site.base + "/", "--numPages", "201", "--db",
+                            str(tmp_path / "db"), "--odpURL", directory.base + "/",
+                            "--topicPagerank", "--saveSnapshot", str(tmp_path / "snap")])
+    db = Database(str(tmp_path / "db"))
+    assert len(db.doc_info) >= 201 and len(db.topic_meta) == 4
+    got = {k: v for k, v in db.doc_rank.items()}
+    update_pagerank(db, personalized=True, device="cpu", dtype=torch.float64)
+    want = {k: v for k, v in db.doc_rank.items()}
+    assert got.keys() == want.keys() and len(got) >= 201
+    for k in want:
+        np.testing.assert_allclose([got[k][c] for c in sorted(want[k])],
+                                   [want[k][c] for c in sorted(want[k])], rtol=1e-5, atol=1e-9)
+    snap = load_snapshot(str(tmp_path / "snap"))
+    eng = QueryEngine(db, snapshot=snap, device=cuda, use_topic_model=True)
+    queries = make_queries(snap, db, 16, seed=1)
+    _engines_agree(eng, QueryEngine(db, snapshot=snap, device="cpu", use_topic_model=True),
+                   [parse_query(q) for q in queries], queries)
+    db.close()

@@ -1,6 +1,6 @@
-"""Guards around the PyTorch port: it imports with jax, jaxlib, lxml and the
-JAX package itself blocked (a GPU host has neither jax nor lxml, and the
-port stands alone); its copies of the JAX package's host modules cannot
+"""Guards around the PyTorch port: it imports with jax, jaxlib, lxml,
+aiohttp and the JAX package itself blocked (a GPU host has none of the
+first four, and the port stands alone); its copies of the JAX package's host modules cannot
 drift from their originals; its CLI and chip_smoke.py refuse
 to run without CUDA instead of falling back; its kernel wrappers refuse
 inputs they do not take."""
@@ -27,7 +27,7 @@ _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
     class _Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "lxml", "spaghettisearch_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
     sys.meta_path.insert(0, _Block())
@@ -43,7 +43,7 @@ def _port_modules() -> list[str]:
 
 
 #: top-level names the port and chip_smoke.py never import
-_FORBIDDEN = ("jax", "jaxlib", "lxml", "spaghettisearch_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu")
 
 
 def test_port_imports_without_jax_or_lxml():
@@ -72,6 +72,35 @@ def test_port_imports_without_jax_or_lxml():
     assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr[-3000:]
 
 
+def test_crawl_cli_builds_a_store_without_jax_lxml_aiohttp(tmp_path):
+    """`python -m spaghettisearch_tpu_torch.cli.crawl --device cpu` with
+    jax, jaxlib, lxml, aiohttp and the JAX package blocked crawls a local
+    site into a store and a snapshot."""
+    from spaghettisearch_tpu_torch.corpus import render_pages
+    from spaghettisearch_tpu_torch.crawl.localsite import LocalSite
+
+    pages = render_pages(n_pages=40, n_vocab=400, seed=1)
+    pages["/"] = "".join(f'<a href="/p{i}">p</a>' for i in range(40)).encode()
+    with LocalSite(pages) as site:
+        argv = ["crawl", "--startURL", site.base + "/", "--numPages", "41", "--skipODP",
+                "--device", "cpu", "--db", str(tmp_path / "db"),
+                "--saveSnapshot", str(tmp_path / "snap")]
+        code = _BLOCKER + textwrap.dedent(f"""
+            import runpy
+            sys.argv = {argv!r}
+            runpy.run_module("spaghettisearch_tpu_torch.cli.crawl", run_name="__main__")
+            bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
+            assert not bad, bad
+        """)
+        out = subprocess.run(
+            [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": REPO},
+        )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "(indexed 41, errors 0)" in out.stdout
+    assert os.path.isdir(tmp_path / "snap")
+
+
 def _sources() -> list[str]:
     root = os.path.dirname(spaghettisearch_tpu_torch.__file__)
     paths = [os.path.join(REPO, "chip_smoke.py")]
@@ -81,8 +110,8 @@ def _sources() -> list[str]:
 
 
 def test_port_source_never_imports_jax():
-    """No absolute import of jax, jaxlib, lxml or the JAX package, at module
-    level or inside a function (lxml's one call-time import aside)."""
+    """No absolute import of jax, jaxlib, lxml, aiohttp or the JAX package,
+    at module level or inside a function."""
     for path in _sources():
         tree = ast.parse(open(path, encoding="utf-8").read())
         for node in ast.walk(tree):
@@ -92,8 +121,6 @@ def test_port_source_never_imports_jax():
                 else []
             )
             for n in names:
-                if path.endswith(os.path.join("text", "htmlparse.py")) and n == "lxml":
-                    continue
                 assert n.split(".")[0] not in _FORBIDDEN, (path, n)
 
 
@@ -125,6 +152,12 @@ COPIES = {
     ),),
     "index/snapshot.py": (),
     "index/persist.py": (),
+    "index/indexer.py": (),
+    "text/page.py": (),
+    "cli/debug_db.py": (),
+    "evaluation.py": (),
+    "crawl/__init__.py": (),
+    "crawl/frontier.py": (("own_fetcher = AiohttpFetcher()", "own_fetcher = UrllibFetcher()"),),
     "ops/weighting.py": (("crawl driver still", "crawl command still"),),
     "retrieval/summary.py": (),
     "retrieval/native_summary.py": (),
@@ -165,7 +198,7 @@ def _ast_defs(path: str) -> dict[str, str]:
     tree = ast.parse(open(path, encoding="utf-8").read())
     out = {}
     for node in tree.body:
-        if isinstance(node, ast.FunctionDef):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
             node.body = [n for n in node.body if not isinstance(n, (ast.Import, ast.ImportFrom))]
             out[node.name] = ast.dump(node)
         elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
@@ -173,16 +206,48 @@ def _ast_defs(path: str) -> dict[str, str]:
     return out
 
 
-def test_summary_extractor_matches_original():
-    """text/htmlparse.py carries the original's extract_summary_text and
-    what it calls; lxml is imported inside _parse_dom instead of at module
-    level."""
-    orig = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu", "text", "htmlparse.py"))
-    copy = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu_torch", "text", "htmlparse.py"))
-    assert set(copy) == {"_SKIP_TEXT_PARENTS", "_SUMMARY_PRUNE", "_parse_dom",
-                         "extract_summary_text"}
-    for name, src in copy.items():
-        assert src == orig[name], name
+#: (module, names): functions and constants of the JAX package's module that
+#: the port's module of the same path carries unchanged (the rest of each
+#: port module is its own: the DOM walks, the fetcher, the tensor code)
+PORTED_DEFS = {
+    "text/htmlparse.py": ("_URL_WS", "_SKIP_TEXT_PARENTS", "_META_NAMES", "_SUMMARY_PRUNE",
+                          "clean_url", "_base_authority", "resolve_href", "tokenize_page",
+                          "extract_summary_text"),
+    "crawl/odp.py": ("TopicData", "crawl_topic", "parse_odp"),
+    "crawl/fetch.py": ("HEADERS", "FetchResult", "parse_last_modified", "DictFetcher"),
+    "ops/pagerank.py": ("DEFAULT_MAX_ITERS", "topic_personalization", "_load_graph"),
+}
+
+
+@pytest.mark.parametrize("rel", sorted(PORTED_DEFS))
+def test_ported_defs_match_original(rel):
+    orig = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu", rel))
+    copy = _ast_defs(os.path.join(REPO, "spaghettisearch_tpu_torch", rel))
+    for name in PORTED_DEFS[rel]:
+        assert copy[name] == orig[name], name
+
+
+_SUMMARY_PAGES = {
+    "sections": b"""<html><head><title> T </title><meta name="keywords" content="k1, k2">
+<script>skip()</script></head><body><nav><a href="/n">nav</a></nav><p>body text
+<a href="/x">anchor</a> tail</p><noscript>ns</noscript></body></html>""",
+    "fragment": b"one <b>two</b> <a href='rel/x'>three</a> four",
+    "charset": b'<meta charset="utf-8"><title>caf\xc3\xa9</title><p>na\xc3\xafve <i>r\xc3\xa9sum\xc3\xa9</i></p>',
+    "latin1": b"<p>caf\xc3\xa9 &amp; cr\xe8me<!-- c --> tail<br>after</p>",
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SUMMARY_PAGES))
+def test_summary_and_tokenizer_match_original(name):
+    """The port's summary extractor and tokenizer (on its own DOM, no lxml)
+    give the JAX package's output on fixed pages."""
+    from spaghettisearch_tpu.text import htmlparse as jhp
+    from spaghettisearch_tpu_torch.text import htmlparse as thp
+
+    raw = _SUMMARY_PAGES[name]
+    assert thp.extract_summary_text(raw) == jhp.extract_summary_text(raw)
+    base = "http://site.local/a/b.html"
+    assert thp.tokenize_page(raw, base, True).__dict__ == jhp.tokenize_page(raw, base, True).__dict__
 
 
 def _func_src(obj) -> str:
@@ -282,6 +347,32 @@ def test_server_cli_serves_bm25(tmp_path, monkeypatch):
     assert isinstance(engine.model, BM25Ranker) and port == 0
     assert engine.query('"gradient"') == engine.query_batch(['"gradient"'])[0]
     engine.db.close()
+
+
+@pytest.mark.parametrize("cli_name", ["crawl", "debug_retrieval"])
+def test_offline_clis_refuse_without_cuda(cli_name, monkeypatch):
+    """The crawl and debug CLIs default to --device cuda and refuse to
+    start without it (no fallback to the CPU)."""
+    import importlib
+
+    cli = importlib.import_module(f"spaghettisearch_tpu_torch.cli.{cli_name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--db", "/nonexistent-db"])
+    assert "CUDA is not available" in str(e.value)
+
+
+def test_update_pagerank_refuses_without_cuda(monkeypatch):
+    from spaghettisearch_tpu_torch.ops.pagerank import update_pagerank
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = Database()
+    db.doc_children.set("a", ["b"])
+    db.topic_meta.set("Sci", {"numPages": 2.0, "wordCount": 1.0})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        update_pagerank(db)
+    assert len(db.doc_rank) == 0
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

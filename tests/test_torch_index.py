@@ -32,7 +32,7 @@ def dbs():
     return {
         "crawl": build_corpus_db(n_pages=60, seed=5),
         "crawl_b": build_corpus_db(n_pages=130, seed=8),
-        "bench": write_corpus(None, n_pages=200, n_vocab=700, seed=1),
+        "bench": write_corpus(None, n_pages=200, n_vocab=700, seed=1, device="cpu"),
     }
 
 

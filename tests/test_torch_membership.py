@@ -51,7 +51,7 @@ def crawl_snap():
 def bench_snap():
     """The port's corpus writer: all weights positive, so the hot cache
     exists and counts may be elided."""
-    return build_snapshot(write_corpus(None, n_pages=160, n_vocab=600, seed=2))
+    return build_snapshot(write_corpus(None, n_pages=160, n_vocab=600, seed=2, device="cpu"))
 
 
 def _indexes(snap, doc_sort):

@@ -40,7 +40,7 @@ def crawl_db():
 
 @pytest.fixture(scope="module")
 def bench_db():
-    return write_corpus(None, n_pages=140, n_vocab=600, seed=6)
+    return write_corpus(None, n_pages=140, n_vocab=600, seed=6, device="cpu")
 
 
 def _queries(which, db, snap):
