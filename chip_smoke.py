@@ -45,7 +45,7 @@ Phases (any failure raises and the script exits non-zero):
      answers keyword and phrase queries through score_csr, equal to the
      untruncated dense plain path;
  10. the offline build: a local site (ThreadingHTTPServer on 127.0.0.1) of
-     bench.py's pages for a 10,000-page corpus (corpus.render_pages, a
+     bench.py's pages for a 5,000-page corpus (corpus.render_pages, a
      fixed Last-Modified, and a home page linking /p0 and every page /p0
      does not reach) and a 16-category ODP directory beside it; the port's
      crawl CLI in a subprocess on the card (--odpURL, --topicPagerank,
@@ -59,7 +59,22 @@ Phases (any failure raises and the script exits non-zero):
      seeded categories), float32 on the card twice (bit-identical) and
      float64 on the CPU once (the card within rtol 1e-5, atol 1e-9);
      iterations, ms per build (CUDA events) and the bytes bound of one
-     iteration.
+     iteration;
+ 12. the doc-sharded mesh (parallel/sharded.py, retrieval/sharded_engine.py)
+     with its MESH_SHARDS=4 shards on cuda:{s % device_count} (all four on
+     one card here: the per-shard kernels and the merge, no cross-GPU
+     traffic): the build's D_l, layout and device bytes per shard; K1 and
+     K2 at one shard's [T, D_l] against their plain versions (the
+     membership_shard and mixed_shard records); B=128 keyword and mixed
+     batches of the query mix through the S=4 mesh, a BM25 mesh, a forced
+     doc-sorted mesh and a 2-D (q=2, d=2) mesh, each top-50 equal to the
+     single-device engine on the card (scores within rtol 1e-5, atol 1e-7)
+     with both engines' ms per batch; the HTTP front end over the S=4 mesh
+     after warmup() answers the serving phase's requests from 8 clients,
+     every response 200 and equal to the single-device plain path, K1 and
+     K2 launched a positive multiple of 4 times; sharded_pagerank on the
+     100k graph twice (bit-identical, within rtol 1e-5 / atol 1e-9 of
+     float64 on the CPU).
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -398,9 +413,9 @@ def library_calls(idx, n_words: int, batch: dict, want: list,
     return calls
 
 
-#: phase 10: the crawl's size (20 times the CLI's default of 500 pages),
+#: phase 10: the crawl's size (10 times the CLI's default of 500 pages),
 #: its ODP categories, and the time limit of the crawl subprocess
-CRAWL_PAGES = 10_000
+CRAWL_PAGES = 5_000
 ODP_CATEGORIES = 16
 CRAWL_TIMEOUT_S = 600
 HTTP_DATE = "Thu, 01 Jan 2026 00:00:00 GMT"
@@ -654,6 +669,205 @@ def pagerank_phase(db, seed: int, smi: str) -> dict:
             f"({ms64:.1f} ms; max rel err {rel:.3g}) ({smi})")
     say(f"# pagerank report: {json.dumps(pagerank_report)}; {time.perf_counter() - t0:.1f}s")
     return pagerank_report
+
+
+#: phase 12: the mesh's doc shards (shard s on cuda:{s % device_count}) and
+#: the bar between the mesh and the single-device engine (the JAX package's
+#: own between sharded and single-chip, tests/test_sharded.py)
+MESH_SHARDS = 4
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-7
+
+
+def mesh_phase(db, snap, engine, queries: list[str], kw_only: list[str], serving_ref: list,
+               df, smi: str, phase_launches: dict) -> dict:
+    """Phase 12 (see the module docstring). `engine` is the single-device
+    engine on the card and `serving_ref` its plain-path answers to
+    queries + kw_only. -> per kernel ("membership_shard", "mixed_shard"):
+    its checks, (ms, plain ms), bound and library ms at one shard's shape."""
+    import numpy as np
+    import torch
+
+    from spaghettisearch_tpu_torch.config import PAGERANK_CONVERGENCE, PAGERANK_DAMPING
+    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+    from spaghettisearch_tpu_torch.ops import pagerank as pr
+    from spaghettisearch_tpu_torch.ops.kernels import check
+    from spaghettisearch_tpu_torch.parallel import sharded
+    from spaghettisearch_tpu_torch.parallel.mesh import make_mesh
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
+    from spaghettisearch_tpu_torch.retrieval.sharded_engine import ShardedQueryEngine
+
+    t_phase = time.perf_counter()
+    shard_csr = sharded._shard_csr
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", s % n_cards) for s in range(MESH_SHARDS)]
+
+    def build(what: str, **kw) -> ShardedQueryEngine:
+        csr_s = [0.0]  # the host's CSR split (_shard_csr, both sections)
+
+        def timed_csr(*a, **k):
+            t = time.perf_counter()
+            try:
+                return shard_csr(*a, **k)
+            finally:
+                csr_s[0] += time.perf_counter() - t
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sharded._shard_csr = timed_csr
+        try:
+            eng = ShardedQueryEngine(db, snapshot=snap, devices=devices, **kw)
+        finally:
+            sharded._shard_csr = shard_csr
+        torch.cuda.synchronize()
+        sidx = eng.index.sidx
+        sh = sidx.shards[0]
+        say(f"# mesh {what}: {eng._mesh}; built in {time.perf_counter() - t:.1f}s (host numpy, "
+            f"of which {csr_s[0]:.1f}s in _shard_csr, and the copies to the card); D_l "
+            f"{sidx.docs_per_shard}, doc_sort "
+            f"{sidx.doc_perm is not None}, hot terms "
+            f"{0 if sidx.hot_body_map is None else len(sidx.hot_body_map)}, planes "
+            f"{None if sh.body.posT is None else sh.body.posT.dtype}, body T "
+            f"{sh.body.fwd.ftT.shape[0]}, title T {sh.title.fwd.ftT.shape[0]}, device bytes "
+            f"per shard {sidx.device_bytes()}")
+        return eng
+
+    mesh = build(f"S={MESH_SHARDS}", n_shards=MESH_SHARDS)
+    sidx = mesh.index.sidx
+    if any(sh.device.type != "cuda" for row in sidx.rows for sh in row):
+        raise RuntimeError("a shard of the mesh is not on the card")
+
+    # K1 and K2 at one shard's [T, D_l], against their plain versions
+    sh = sidx.shards[0]
+    counts = sidx.has_zero_weight  # the scorers' emit_counts
+    tmax = sh.body.tmax_blocks is not None
+    kb = check.to_device(check.keyword_batch(sh, 128, 4, seed=12, df=df), sh.device)
+    mb = check.to_device(check.mixed_batch(sh, 128, 4, 16, seed=13, df=df, snap=snap), sh.device)
+    out: dict = {"membership_shard": {"checks": []}, "mixed_shard": {"checks": []}}
+    for emit in (True, False):
+        for kname, run in (("membership_shard", lambda e, p: check.run_k1(sh, kb, e, tmax, plain=p)),
+                           ("mixed_shard", lambda e, p: check.run_k2(sh, mb, e, plain=p))):
+            rep = check.compare(run(emit, False), run(emit, True))
+            say(f"# {kname} B=128 at [T, D_l={sh.n_docs_padded}] counts={emit}: {rep}")
+            if not rep["ok"]:
+                raise RuntimeError(f"{kname} kernel disagrees with its plain version: {rep}")
+            out[kname]["checks"].append(rep)
+    out["membership_shard"]["times"] = (
+        check.time_ms(lambda: check.run_k1(sh, kb, counts, tmax)),
+        check.time_ms(lambda: check.run_k1(sh, kb, counts, tmax, plain=True), iters=5),
+    )
+    out["mixed_shard"]["times"] = (
+        check.time_ms(lambda: check.run_k2(sh, mb, counts)),
+        check.time_ms(lambda: check.run_k2(sh, mb, counts, plain=True), iters=3, warmup=1),
+    )
+    n_k = 4 if counts else 2
+    out["membership_shard"]["bound"] = bound_ms(
+        sh, [(getattr(sh, s).fwd.ftT, row_terms(kb, s)) for s in ("title", "body")], 128, n_k)
+    out["mixed_shard"]["bound"] = bound_ms(
+        sh, [(getattr(sh, s).fwd.ftT, row_terms(mb, s, True)) for s in ("title", "body")], 128, n_k)
+    k1_want = check.run_k1(sh, kb, counts, tmax, plain=True)
+    lib = library_calls(sh, snap.n_words, kb, [k1_want[:2], k1_want[2:]])
+    out["membership_shard"]["library"] = check.time_ms(lambda: [torch.sparse.mm(w, m) for w, m in lib])
+    out["mixed_shard"]["library"] = None
+    for kname, rec in out.items():
+        say(f"# {kname}: kernel {rec['times'][0]:.4f} ms, plain {rec['times'][1]:.4f} ms, bound "
+            f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}), library {rec['library']} ms per B=128 "
+            f"call at one shard's shape ({smi})")
+
+    # ranks: B=128 keyword and mixed batches of the query mix, each mesh
+    # against the single-device engine on the card
+    kw_parsed = [parse_query(q) for q in queries if '"' not in q][:128]
+    mixed_parsed = [parse_query(q) for q in queries[:128]]
+    if len(kw_parsed) != 128 or not any(p.phrase_hashes for p in mixed_parsed):
+        raise RuntimeError("the query mix has no B=128 keyword or mixed batch")
+    bm25_single = QueryEngine(db, snapshot=snap, index=engine.index, device="cuda", model=BM25Ranker())
+
+    def hold_ranks(what: str, eng, single) -> None:
+        for kind, parsed in (("keyword", kw_parsed), ("mixed", mixed_parsed)):
+            got, want = eng.rank(parsed), single.rank(parsed)
+            if not same_topk(*map(torch.from_numpy, got + want), rtol=MESH_RTOL, atol=MESH_ATOL):
+                raise RuntimeError(f"mesh {what}: the {kind} batch's top-50 differs from the "
+                                   "single-device engine")
+            ms = check.time_ms(lambda: eng.rank(parsed), iters=5, warmup=1)
+            ms1 = check.time_ms(lambda: single.rank(parsed), iters=5, warmup=1)
+            say(f"# mesh {what}: B=128 {kind} top-50 equals the single-device engine "
+                f"({int(np.isfinite(got[0]).sum())} ranked); {ms:.4f} ms per batch against "
+                f"{ms1:.4f} ms single-device ({smi})")
+
+    hold_ranks(f"S={MESH_SHARDS}", mesh, engine)
+    for what, kw, single in (("bm25", {"model": BM25Ranker()}, bm25_single),
+                             ("doc-sorted", {"doc_sort": True}, engine),
+                             ("2-D q=2 x d=2", {"n_query_rows": 2}, engine)):
+        n_d = 2 if "n_query_rows" in kw else MESH_SHARDS
+        other = build(what, n_shards=n_d, **kw)
+        if "doc_sort" in kw and other.index.sidx.doc_perm is None:
+            raise RuntimeError("doc_sort=True built no doc-sorted layout")
+        hold_ranks(what, other, single)
+        del other
+        torch.cuda.empty_cache()
+
+    # serving: the HTTP front end over the S=4 mesh
+    t0 = time.perf_counter()
+    mesh.warmup()
+    mesh.prewarm_hydration()
+    mesh.prewarm_wordlist()
+    say(f"# mesh serving: warmup + hydration prewarm in {time.perf_counter() - t0:.1f}s")
+    reset_launches()
+    results, wall = http_burst(mesh, [("post", q) for q in queries] + [("get", q) for q in kw_only],
+                               CLIENTS)
+    phase_launches["mesh_serving"] = launches()
+    n = phase_launches["mesh_serving"]
+    if min(n["membership"], n["mixed"]) == 0 or n["membership"] % MESH_SHARDS or n["mixed"] % MESH_SHARDS:
+        raise RuntimeError(f"mesh serving: K1/K2 launches {n} are not a positive multiple of "
+                           f"{MESH_SHARDS}")
+    got = [results[("post", q)][1] for q in queries] + [results[("get", q)][1] for q in kw_only]
+    n_hits = check_ranked(queries + kw_only, got, serving_ref, "mesh serving", rtol=MESH_RTOL)
+    out["serving"] = latency_stats(results, len(results), wall)
+    say(f"# mesh serving: {len(results)} requests ({len(queries)} POST, {len(kw_only)} GET) from "
+        f"{CLIENTS} clients in {wall:.3f}s = {out['serving']['req_per_s']:.1f} req/s; POST "
+        f"latency p50 {out['serving']['p50_ms']:.2f} ms, p99 {out['serving']['p99_ms']:.2f} ms; "
+        f"every response 200 and equal to the single-device plain path ({n_hits} results); "
+        f"launches {n} ({smi})")
+    del mesh, sidx, sh
+    torch.cuda.empty_cache()
+
+    # PageRank with the edges sharded by destination range
+    node_list, e_src, e_dst, outdeg = pr._load_graph(db)
+    n_nodes, n_edges = len(node_list), len(e_src)
+    cats = sorted(db.topic_meta.keys())
+    n_pages = np.array([float(db.topic_meta.get(c)["numPages"]) for c in cats])
+    want = pr.pagerank_power(torch.as_tensor(e_src), torch.as_tensor(e_dst),
+                             torch.as_tensor(outdeg, dtype=torch.float64),
+                             torch.as_tensor(n_pages, dtype=torch.float64), n_nodes).numpy()
+    pr_mesh = make_mesh(MESH_SHARDS, devices=devices)
+    runs = []
+    for _ in range(3):  # the first warms the allocator
+        stats: dict = {}
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ranks = sharded.sharded_pagerank(pr_mesh, e_src, e_dst, outdeg.astype(np.float32),
+                                 n_pages.astype(np.float32), n_nodes, damping=PAGERANK_DAMPING,
+                                 eps=PAGERANK_CONVERGENCE, stats=stats)
+        end.record()
+        end.synchronize()
+        runs.append((ranks.cpu().numpy(), stats["iterations"], start.elapsed_time(end)))
+    (r1, it1, ms1), (r2, it2, ms2) = runs[1:]
+    if not (np.array_equal(r1.view(np.uint32), r2.view(np.uint32)) and it1 == it2):
+        raise RuntimeError("sharded_pagerank: two runs on the card differ")
+    if not np.allclose(r1, want, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL):
+        raise RuntimeError("sharded_pagerank: float32 on the card differs from float64 on the CPU")
+    rel = float(np.max(np.abs(r1 - want) / np.maximum(np.abs(want), 1e-30)))
+    bound = pagerank_bound_ms(n_nodes, n_edges, len(cats), 2)
+    out["pagerank"] = {"nodes": n_nodes, "edges": n_edges, "categories": len(cats),
+                       "iterations": it1, "ms": [ms1, ms2], "bound_ms_per_iter": bound,
+                       "max_rel_err_vs_f64": rel}
+    say(f"# sharded_pagerank S={MESH_SHARDS}: {n_nodes} nodes, {n_edges} edges, C={len(cats)}: "
+        f"{it1} iterations, {ms1:.3f} / {ms2:.3f} ms per build with the host's edge split "
+        f"({ms1 / it1:.4f} ms per iteration, bound {bound:.4f} ms by bytes), two runs "
+        f"bit-identical, within rtol {PAGERANK_RTOL} / atol {PAGERANK_ATOL} of float64 on the "
+        f"CPU (max rel err {rel:.3g}) ({smi})")
+    say(f"# mesh phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -943,6 +1157,7 @@ def main() -> int:
         ref = engine.query_batch(ref_q)
     got = [results[("post", q)][1] for q in queries] + [results[("get", q)][1] for q in kw_only]
     n_hits = check_ranked(ref_q, got, ref, "serving")
+    serving_ref = ref
     say(f"# serving: all {len(ref_q)} ranked responses equal the plain path ({n_hits} results)")
 
     # 6. fused ranking (K4) vs the production keyword scorer
@@ -1039,6 +1254,13 @@ def main() -> int:
     crawl_phase(args.seed, smi, phase_launches)
     # 11. PageRank at full size on the card: the 100k corpus's link graph
     pagerank_phase(db, args.seed, smi)
+    # 12. the doc-sharded mesh on the card
+    mesh = mesh_phase(db, snap, engine, queries, kw_only, serving_ref, df, smi, phase_launches)
+    for kname in ("membership_shard", "mixed_shard"):
+        records[kname] = mesh[kname]["checks"]
+        times[kname] = mesh[kname]["times"]
+        bounds[kname] = mesh[kname]["bound"]
+        library[kname] = mesh[kname]["library"]
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
@@ -1049,8 +1271,11 @@ def main() -> int:
         ("membership_1sec", "membership.cu",
          "spaghettisearch_tpu/ops/kernels/membership.py:322", "custom_blend"),
         ("fused", "fused.cu", "spaghettisearch_tpu/ops/kernels/fused.py:111", "fused_rank"),
+        ("membership_shard", "membership.cu", "spaghettisearch_tpu/ops/kernels/membership.py:274",
+         "mesh_serving"),
+        ("mixed_shard", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514", "mesh_serving"),
     ):
-        n = phase_launches[path][kname]
+        n = phase_launches[path][kname.removesuffix("_shard")]
         if n == 0:
             raise RuntimeError(f"{kname} never launched on its ranked path ({path})")
         kernels.append({

@@ -6,8 +6,11 @@ with $PORT env).
 --device defaults to cuda and the CLI refuses to start without CUDA;
 --device cpu is an explicit choice (the plain-version CPU recipe), never a
 fallback. --ranker bm25 serves Okapi BM25 (models/bm25.py) instead of the
-reference blend. Options of the JAX package's CLI that this package does
-not serve yet (--platform, --meshShards) exit with a message.
+reference blend. --meshShards N serves the doc-sharded mesh
+(retrieval/sharded_engine.py): on --device cuda one shard per visible card,
+and N above the card count exits with a message (the mesh never shrinks);
+--device cuda:N puts every shard on that card, --device cpu every shard on
+the CPU. --platform (a JAX backend switch) exits with a message.
 """
 
 from __future__ import annotations
@@ -45,10 +48,16 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ranker", choices=("blended", "bm25"), default="blended",
                     help="blended = the reference's TF-IDF/PageRank formula; "
                          "bm25 = Okapi BM25 with field boosts")
-    ap.add_argument("--meshShards", type=int, default=0)
+    ap.add_argument("--meshShards", type=int, default=0,
+                    help="serve with the doc-sharded scorer over N mesh "
+                         "shards (0 = single-device engine)")
+    ap.add_argument("--meshBatch", type=int, default=1,
+                    help="with --meshShards: query-data-parallel rows of a "
+                         "2-D mesh")
     ap.add_argument("--platform", default=None)
     ap.add_argument("--bigBatch", action="store_true",
-                    help="serve with a 256-row micro-batch ceiling")
+                    help="serve with a 256-row micro-batch ceiling "
+                         "(single-device engine only)")
     ap.add_argument("--noBatching", action="store_true")
     ap.add_argument("--fetchers", type=int, default=1,
                     help="concurrent device->host fetch threads in the "
@@ -75,13 +84,18 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.platform is not None:
         sys.exit(_NOT_PORTED.format("--platform (a JAX backend switch)"))
-    if args.meshShards:
-        sys.exit(_NOT_PORTED.format("--meshShards (the multi-chip mesh)"))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"--device {args.device}: CUDA is not available "
             "(pass --device cpu to serve on the CPU explicitly)"
+        )
+    n_mesh = args.meshShards * args.meshBatch
+    if args.meshShards and device == torch.device("cuda") and n_mesh > torch.cuda.device_count():
+        raise SystemExit(
+            f"--meshShards {args.meshShards} --meshBatch {args.meshBatch} needs "
+            f"{n_mesh} CUDA devices, {torch.cuda.device_count()} visible (pass "
+            "--device cuda:N to put every shard on one card)"
         )
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
@@ -98,11 +112,23 @@ def main(argv: list[str] | None = None) -> None:
         from ..models.bm25 import BM25Ranker
 
         kwargs["model"] = BM25Ranker()
-    if args.bigBatch:
+    cls = QueryEngine
+    if args.meshShards:
+        from ..retrieval.sharded_engine import ShardedQueryEngine
+
+        cls = ShardedQueryEngine
+        kwargs["n_shards"] = args.meshShards
+        kwargs["n_query_rows"] = args.meshBatch
+        if args.bigBatch:
+            logging.getLogger("spaghettisearch.serve").warning(
+                "--bigBatch is single-device only; ignoring with --meshShards"
+            )
+            args.bigBatch = False
+    elif args.bigBatch:
         kwargs["big_batch"] = True
-    if args.phraseStale == "pure":
+    if args.phraseStale == "pure" and not args.meshShards:
         kwargs["phrase_b32"] = True
-    engine = QueryEngine(
+    engine = cls(
         db, snapshot=snapshot, use_topic_model=args.topicModel,
         topic_model_fixed=args.topicModel and not args.topicQuirk,
         device=device, **kwargs,

@@ -192,6 +192,12 @@ _BLOCK_TAGS = frozenset(
 _BLANK = " \t\n\r\x0c"
 #: libxml2's parser depth limit (without XML_PARSE_HUGE): html is depth 1
 _MAX_DEPTH = 256
+#: libxml2 keeps a tag or attribute name's first 100 bytes (UTF-8, whole
+#: characters)
+_NAME_MAX = 100
+#: a text, raw-text or comment run over this many bytes (UTF-8) is dropped
+#: and parsing stops (libxml2's XML_MAX_TEXT_LENGTH, without XML_PARSE_HUGE)
+_TEXT_MAX = 10_000_000
 
 
 class _Assembler:
@@ -465,6 +471,19 @@ def _utf8(name: str) -> str:
     return raw.decode("utf-8", "replace")
 
 
+def _cut(name: str) -> str:
+    """A name as libxml2 keeps it: its longest prefix of at most _NAME_MAX
+    bytes in UTF-8."""
+    if len(name) <= _NAME_MAX // 4:
+        return name
+    return name.encode("utf-8")[:_NAME_MAX].decode("utf-8", "ignore")
+
+
+def _huge(text: str) -> bool:
+    """A run libxml2 drops, stopping there: over _TEXT_MAX bytes in UTF-8."""
+    return len(text) > _TEXT_MAX // 4 and len(text.encode("utf-8")) > _TEXT_MAX
+
+
 class _Tokenizer:
     """html.parser's tokenizer feeding an _Assembler. Tags, comments and raw
     text are read here (HTML5's states): tags by `_scan_tag`, the text of
@@ -486,17 +505,31 @@ class _Tokenizer:
     def _names(self, i: int, name: str, attrib: dict) -> tuple[str, dict]:
         """Names as libxml2 reads them: it takes a name's bytes as they
         are, so the non-ASCII names of a tag at i that comes before
-        `utf8_before` (bytes not yet decoded, see `_decode`) are UTF-8."""
-        if self.size - len(self.rawdata) + i >= self.utf8_before:
-            return name, attrib
-        if not name.isascii():
-            name = _utf8(name)
-        if not all(k.isascii() for k in attrib):
-            fixed: dict[str, str] = {}
+        `utf8_before` (bytes not yet decoded, see `_decode`) are UTF-8.
+        Every name is cut to _NAME_MAX bytes (`_cut`); of two attributes
+        whose names then agree, the first is kept."""
+        if self.size - len(self.rawdata) + i < self.utf8_before:
+            if not name.isascii():
+                name = _utf8(name)
+            if not all(k.isascii() for k in attrib):
+                fixed: dict[str, str] = {}
+                for k, v in attrib.items():
+                    fixed.setdefault(k if k.isascii() else _utf8(k), v)
+                attrib = fixed
+        name = _cut(name)
+        if any(len(k) > _NAME_MAX // 4 for k in attrib):
+            cut: dict[str, str] = {}
             for k, v in attrib.items():
-                fixed.setdefault(k if k.isascii() else _utf8(k), v)
-            attrib = fixed
+                cut.setdefault(_cut(k), v)
+            attrib = cut
         return name, attrib
+
+    def _run(self, text: str) -> bool:
+        """False, and the tree ends, if libxml2 drops the run (`_huge`)."""
+        if _huge(text):
+            self.asm.done = True
+            return False
+        return True
 
     def close(self) -> None:
         self.at_end = True
@@ -525,7 +558,7 @@ class _Tokenizer:
             m = _end_tag(name).search(rawdata, end)
             stop = len(rawdata) if m is None else m.start()
         text = rawdata[end:stop]
-        if text:
+        if text and self._run(text):
             self.asm.data(unescape(text) if name in _RCDATA else text)
         if stop == len(rawdata):
             return stop
@@ -561,7 +594,9 @@ class _Tokenizer:
         m = _COMMENT_END.search(rawdata, i + 4)
         if m is None:
             return -1
-        self.handle_comment(rawdata[i + 4 : m.start()])
+        text = rawdata[i + 4 : m.start()]
+        if self._run(text):
+            self.handle_comment(text)
         return m.end()
 
     def parse_html_declaration(self, i: int) -> int:
@@ -610,7 +645,7 @@ class _Tokenizer:
                 if amp >= 0 and not _AMP_END.search(rawdata, amp):
                     break
                 j = n
-            if i < j:
+            if i < j and self._run(rawdata[i:j]):
                 self.handle_data(unescape(rawdata[i:j]))
             i = j
             if i == n:
@@ -658,7 +693,8 @@ class _Tokenizer:
                     self.handle_pi(rawdata[i + 2 :])
             i = k
         if end and i < n:
-            self.handle_data(unescape(rawdata[i:n]))
+            if self._run(rawdata[i:n]):
+                self.handle_data(unescape(rawdata[i:n]))
             i = n
         self.rawdata = rawdata[i:]
 
@@ -801,7 +837,7 @@ def _decode(raw: bytes) -> tuple[str, int]:
         else:
             tail = raw[end:].decode(codec, "replace")
         head = raw[:end].decode("latin-1")
-        utf8_before = len(_newlines(head)) if end == n else 0
+        utf8_before = len(_newlines(head))
         text = head + tail
     return _newlines(text), utf8_before
 
@@ -818,8 +854,7 @@ def _newlines(text: str) -> str:
 _UTF32 = {b"\x00\x00\xfe\xff": "utf-32-be", b"\xff\xfe\x00\x00": "utf-32-le",
           b"\x00\x00\x00<": "utf-32-be", b"<\x00\x00\x00": "utf-32-le"}
 _UTF16 = {b"<\x00?\x00": "utf-16-le", b"\x00<\x00?": "utf-16-be"}  # '<?' without a BOM
-_IN_TAG_NAME = re.compile(rb"</?[A-Za-z][^\t\n\f\r />]*\Z")
-_NAME_REST = re.compile(rb"[^\t\n\f\r />]*")
+_NON_ASCII_STR = re.compile(r"[\x80-\xff]")
 _FIND_WORDS = [re.compile(w, re.I) for w in (rb"HTTP-EQUIV", rb"CONTENT", rb"CHARSET=")]
 _FOUND_NAME = re.compile(rb"[A-Za-z0-9_:/-]*")
 
@@ -838,17 +873,73 @@ def _find_encoding(raw: bytes, i: int) -> str | None:
 
 
 def _first_read_non_ascii(raw: bytes) -> int:
-    """The first non-ASCII byte that is not part of a tag name."""
+    """The first non-ASCII byte that is not part of a tag name, with the
+    tags found as the tokenizer finds them: the text of a raw-text element
+    (script, style, title, ...), comments and attribute values are read."""
+    if _NON_ASCII.search(raw) is None:
+        return len(raw)
+    s = raw.decode("latin-1")
+    n = len(s)
+
+    def read_from(i: int, stop: int = n) -> int | None:
+        m = _NON_ASCII_STR.search(s, i, stop)
+        return None if m is None else m.start()
+
+    def tag(lt: int, name_at: int) -> tuple[int | None, int, tuple | None]:
+        """A start or end tag at lt: -> (the first read non-ASCII in it or
+        None, where it ends, _scan_tag's result)."""
+        name_end = _TAG.match(s, name_at + 1).end()
+        found = _scan_tag(s, name_at)
+        end = n if found is None else found[0]
+        return read_from(name_end, end), end, found
+
     pos = 0
     while True:
-        m = _NON_ASCII.search(raw, pos)
-        if m is None:
-            return len(raw)
-        i = m.start()
-        lt = raw.rfind(b"<", 0, i)
-        if lt < 0 or not _IN_TAG_NAME.match(raw, lt, i):
-            return i
-        pos = _NAME_REST.match(raw, i).end()
+        first = read_from(pos)
+        if first is None:
+            return n
+        lt = s.find("<", pos, first)
+        if lt < 0:
+            return first
+        if _STARTTAG_OPEN.match(s, lt):
+            hit, end, found = tag(lt, lt + 1)
+            if hit is not None or found is None:
+                return n if hit is None else hit
+            _, name, _, closed = found
+            pos = end
+            if closed or not (name in _RAW or name in _RCDATA or name == "plaintext"):
+                continue
+            if name == "plaintext":
+                stop = n
+            elif name == "script":
+                stop = _script_end(s, end)
+            else:
+                m = _end_tag(name).search(s, end)
+                stop = n if m is None else m.start()
+            hit = read_from(end, stop)
+            if hit is not None or stop == n:
+                return n if hit is None else hit
+            hit, pos, found = tag(stop, stop + 2)
+            if hit is not None or found is None:
+                return n if hit is None else hit
+        elif s.startswith("</", lt) and s[lt + 2 : lt + 3].isascii() and s[lt + 2 : lt + 3].isalpha():
+            hit, pos, found = tag(lt, lt + 2)
+            if hit is not None or found is None:
+                return n if hit is None else hit
+        else:
+            # a comment, a declaration, a processing instruction or a lone
+            # '<': read up to its end
+            if s.startswith("<!--", lt):
+                m = _ABRUPT.match(s, lt + 4) or _COMMENT_END.search(s, lt + 4)
+                end = n if m is None else m.end()
+            elif s.startswith(("<!", "<?", "</"), lt):
+                end = s.find(">", lt + 2)
+                end = n if end < 0 else end + 1
+            else:
+                end = lt + 1
+            if first < end:
+                return first
+            pos = end
 
 
 # --- lxml.html.fromstring -----------------------------------------------------

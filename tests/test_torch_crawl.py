@@ -150,7 +150,7 @@ def test_indexer_mutation_sequence(seed):
 def test_indexer_bench_pages():
     """bench.py's pages through both indexers (the bulk fast path), plus
     PageRank and term weighting; the link graph and summaries also equal
-    the corpus writer's (which leaves out anchor text: ROADMAP)."""
+    the corpus writer's (which runs the same indexer)."""
     pages = render_pages(n_pages=120, n_vocab=900, seed=2)
 
     def build(index_page, pagerank, weights, **kw):
@@ -201,6 +201,27 @@ def test_render_pages_rebuild_bench_corpus(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0), k
+    jdb.close()
+
+
+def test_write_corpus_equals_bench_corpus(tmp_path):
+    """corpus.write_corpus, the smoke's corpus, writes what bench.py's own
+    build writes at 300 pages: every table, the anchor postings in titles
+    (the -100 sentinel) and the anchor words in bodies included."""
+    import bench
+    from spaghettisearch_tpu_torch.corpus import write_corpus
+
+    bench.build_bench_corpus(str(tmp_path / "bench"), n_pages=300, seed=0, quiet=True)
+    jdb = JaxDatabase(str(tmp_path / "bench" / "store"))
+    tdb = write_corpus(None, n_pages=300, seed=0, device="cpu")
+    assert len(tdb.doc_info) >= 300
+    assert_same_store(tdb, jdb, skip=("doc_magnitude",))
+    got, want = _table(tdb, TABLE_SPECS, "doc_magnitude"), _table(jdb, JSPECS, "doc_magnitude")
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0), k
+    anchors = sum(-100.0 in v[1:] for _, row in tdb.inv_title.items() for v in row.values())
+    assert anchors > 100
     jdb.close()
 
 

@@ -3,7 +3,8 @@ against its plain PyTorch version on the card, at small and at the main
 path's full widths (B=128, Q=4/32, P=16), all four also on the batches
 that stress their probe tables (and each table build against its plain
 version), and the CUDA engine against the CPU engine on the reference
-blend, BM25, a custom blend and the CSR route.
+blend, BM25, a custom blend and the CSR route; the doc-sharded mesh with
+its shards on the card against the same mesh on the CPU.
 
 This file imports no jax: on the card run it as
 
@@ -486,3 +487,83 @@ def test_crawl_cli_on_cuda(cuda, tmp_path):
     _engines_agree(eng, QueryEngine(db, snapshot=snap, device="cpu", use_topic_model=True),
                    [parse_query(q) for q in queries], queries)
     db.close()
+
+
+# --- the doc-sharded mesh on the card --------------------------------------------
+
+@pytest.mark.parametrize("n_shards,n_rows", [(2, 1), (4, 1), (2, 2)])
+def test_sharded_engine_on_cuda_matches_cpu(cuda, corpus, n_shards, n_rows):
+    """The mesh's shards all on the card: a mixed batch (K2 once per shard
+    and query row), a keyword batch (K1 likewise) and a 5-query batch (16
+    rows: 8 per query row on the 2-D mesh) rank as the same mesh on the
+    CPU."""
+    from spaghettisearch_tpu_torch.retrieval.sharded_engine import ShardedQueryEngine
+
+    db, snap = corpus
+    n_dev = n_shards * n_rows
+    kw = dict(snapshot=snap, n_shards=n_shards, n_query_rows=n_rows)
+    eng_gpu = ShardedQueryEngine(db, devices=[cuda] * n_dev, **kw)
+    eng_cpu = ShardedQueryEngine(db, device="cpu", **kw)
+    assert all(sh.device.type == "cuda" for row in eng_gpu.index.sidx.rows for sh in row)
+    queries = make_queries(snap, db, 64, seed=7)
+    parsed = [parse_query(q) for q in queries]
+    assert eng_gpu._use_mixed(eng_gpu.index.sidx, parsed)
+    k1.reset_launches()
+    k2.reset_launches()
+    _engines_agree(eng_gpu, eng_cpu, parsed, queries)
+    assert k2.LAUNCHES == n_dev and k1.LAUNCHES == 0
+    kw_rows = [i for i, p in enumerate(parsed) if not p.phrase_hashes]
+    _engines_agree(eng_gpu, eng_cpu, [parsed[i] for i in kw_rows], [queries[i] for i in kw_rows])
+    assert k1.LAUNCHES == n_dev
+    _engines_agree(eng_gpu, eng_cpu, [parsed[i] for i in kw_rows[:5]],
+                   [queries[i] for i in kw_rows[:5]])
+    assert k1.LAUNCHES == 2 * n_dev
+
+
+def test_sharded_pagerank_on_cuda_matches_cpu(cuda):
+    from spaghettisearch_tpu_torch.parallel.mesh import make_mesh
+    from spaghettisearch_tpu_torch.parallel.sharded import sharded_pagerank
+
+    src, dst, outdeg, extra = _pagerank_inputs("power")
+    args = (src, dst, outdeg.astype(np.float32), extra.astype(np.float32), len(outdeg))
+    got = sharded_pagerank(make_mesh(4, devices=[cuda] * 4), *args)
+    assert got.device.type == "cuda"
+    want = sharded_pagerank(make_mesh(4, devices=["cpu"] * 4), *args).numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-9)
+
+
+def test_server_cli_mesh_on_cuda(cuda, tmp_path, monkeypatch):
+    """`cli.server --device cuda:0 --meshShards 2`: both shards on the card,
+    and a POST /query answers with the CPU mesh's results."""
+    import json
+    import urllib.request
+
+    from spaghettisearch_tpu_torch.cli import server as cli
+    from spaghettisearch_tpu_torch.retrieval.sharded_engine import ShardedQueryEngine
+
+    write_corpus(str(tmp_path / "db"), n_pages=300, n_vocab=2000, seed=1).close()
+    started = []
+
+    class Background(cli.SearchServer):
+        def serve(self, port=8080, host="127.0.0.1"):
+            started.append(self)
+            self.base = "http://%s:%d" % self.start_background(port=0)
+
+    monkeypatch.setattr(cli, "SearchServer", Background)
+    cli.main(["--db", str(tmp_path / "db"), "--device", "cuda:0", "--meshShards", "2"])
+    server = started[0]
+    try:
+        assert [sh.device.type for sh in server.engine.index.sidx.shards] == ["cuda", "cuda"]
+        q = "w00100 w00200"
+        req = urllib.request.Request(server.base + "/query", data=json.dumps({"query": q}).encode(),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            got = json.loads(r.read())
+        want = ShardedQueryEngine(server.engine.db, n_shards=2, device="cpu").query(q)
+        rows = [[(r["Url"], r["FinalRank"]) for r in res] for res in (got, want)]
+        assert got and _same_up_to_ties(*rows)
+        np.testing.assert_allclose([s for _, s in rows[0]], [s for _, s in rows[1]], rtol=1e-6)
+    finally:
+        server.shutdown()
+        server.engine.db.close()

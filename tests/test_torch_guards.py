@@ -49,6 +49,8 @@ _FORBIDDEN = ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu")
 def test_port_imports_without_jax_or_lxml():
     mods = _port_modules()
     assert "spaghettisearch_tpu_torch.retrieval.engine" in mods and len(mods) > 25
+    assert {"spaghettisearch_tpu_torch.parallel.mesh", "spaghettisearch_tpu_torch.parallel.sharded",
+            "spaghettisearch_tpu_torch.retrieval.sharded_engine"} <= set(mods)
     code = _BLOCKER + textwrap.dedent(f"""
         import importlib.util
         try:
@@ -311,7 +313,8 @@ def test_parse_query_matches_jax():
     (["--device", "cuda"], "CUDA is not available"),
     # --ranker bm25 is served: it gets past the options to the device check
     pytest.param(["--ranker", "bm25"], "CUDA is not available", id="argv1-bm25"),
-    (["--meshShards", "2"], "meshShards"),
+    # --meshShards is served: without CUDA it stops at the same device check
+    pytest.param(["--meshShards", "2"], "CUDA is not available", id="argv2-meshShards"),
     (["--platform", "cpu"], "platform"),
 ])
 def test_server_cli_refuses(argv, msg, monkeypatch):

@@ -176,25 +176,39 @@ def test_trap_values():
     assert root[1].tag == "br" and len(root[1]) == 0 and root[1].tail == "e\xa0f"
 
 
-# Known differences from libxml2, pinned (ROADMAP Queue 3). A non-ASCII
-# byte right after '<' inside raw text (script, style, ...) is taken for
-# the start of a tag name when the port looks for the first non-ASCII byte
-# libxml2 decodes, so a <meta> charset after it still counts for the port,
-# while libxml2 has settled on Latin-1 at that byte.
+def _raw_text_page(tag: str) -> bytes:
+    """A non-ASCII byte right after '<' inside a raw-text element: libxml2
+    reads it (it is text, not a tag name), so it settles on Latin-1 there
+    and a later <meta> charset does not count."""
+    t = tag.encode()
+    return b"<p>x</p><" + t + b"><caf\xc3\xa9</" + t + b"><meta charset=utf-8><p>\xc3\xa9</p>"
+
+
+# Once known differences from libxml2 (ROADMAP Queue 3), now equal: the
+# first non-ASCII byte libxml2 reads in raw text (every element lxml treats
+# as raw text), and libxml2's limits: a text run over 10,000,000 bytes is
+# dropped and parsing stops there; a tag or attribute name keeps its first
+# 100 bytes (so one over 50,000 bytes does too).
 KNOWN = {
-    "raw_text_tag_name": (
-        b"<p>x</p><style><caf\xc3\xa9</style><meta charset=utf-8><p>\xc3\xa9</p>",
-        "\xe9", "\xc3\xa9",
-    ),
+    "raw_text_tag_name": b"<p>x</p><style><caf\xc3\xa9</style><meta charset=utf-8><p>\xc3\xa9</p>",
+    **{f"raw_text_{tag}": _raw_text_page(tag) for tag in (
+        "script", "style", "xmp", "iframe", "noembed", "noframes", "title", "textarea",
+        "plaintext",
+    )},
+    # outside raw text the same bytes are a tag name, kept undecoded (UTF-8)
+    # though a later <meta> settles the encoding
+    **{f"name_before_meta_{tag}": _raw_text_page(tag) for tag in ("p", "noscript", "pre")},
+    "name_before_meta_cp1252": _raw_text_page("p").replace(b"utf-8", b"windows-1252"),
+    "limit_text_over_10mb":b"<html><body><p>x<b>y</b>" + b"a" * 10_000_010
+                            + b"</p><!-- c --><p>after</p></body></html>",
+    "limit_name_over_50000": b"<p>x<" + b"a" * 50_001 + b" " + b"k" * 50_001 + b"=v k"
+                             + b"k" * 130 + b"=w>y</" + b"a" * 50_001 + b">z</p>",
 }
 
 
 @pytest.mark.parametrize("name", sorted(KNOWN))
 def test_known_differences_pinned(name):
-    raw, port_text, lxml_text = KNOWN[name]
-    got = [el.text for el in dom.fromstring(raw).iter() if el.tag == "p"]
-    want = [el.text for el in lxml_html.fromstring(raw).iter() if el.tag == "p"]
-    assert (got[-1], want[-1]) == (port_text, lxml_text)
+    assert_same_page(KNOWN[name])
 
 
 _TAGS = ("html head body title meta p div span a b i u em ul ol li table tr td th "
