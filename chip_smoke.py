@@ -45,7 +45,7 @@ Phases (any failure raises and the script exits non-zero):
      answers keyword and phrase queries through score_csr, equal to the
      untruncated dense plain path;
  10. the offline build: a local site (ThreadingHTTPServer on 127.0.0.1) of
-     bench.py's pages for a 5,000-page corpus (corpus.render_pages, a
+     bench.py's pages for a 2,000-page corpus (corpus.render_pages, a
      fixed Last-Modified, and a home page linking /p0 and every page /p0
      does not reach) and a 16-category ODP directory beside it; the port's
      crawl CLI in a subprocess on the card (--odpURL, --topicPagerank,
@@ -74,7 +74,40 @@ Phases (any failure raises and the script exits non-zero):
      every response 200 and equal to the single-device plain path, K1 and
      K2 launched a positive multiple of 4 times; sharded_pagerank on the
      100k graph twice (bit-identical, within rtol 1e-5 / atol 1e-9 of
-     float64 on the CPU).
+     float64 on the CPU);
+ 13. the graft entry points (graft_entry.py): entry("cuda") (the fused
+     mixed step, K2, on a 2,048-doc synthetic snapshot) equal to its plain
+     path, top-10 within rtol 1e-6; dryrun_multichip(4) (a 2 x 2 mesh, shard
+     s on cuda:{s % device_count}): the sharded scorer, sharded PageRank and
+     one POST /query through ShardedQueryEngine behind SearchServer, K1/K2
+     launches a positive multiple of 4, and the scorer's top-10 (rtol
+     1e-6), the ranks (rtol 1e-5, atol 1e-9) and the HTTP results equal to
+     the same call on the plain path;
+ 14. refresh under load at the 100k corpus: a copy of the corpus store
+     behind the port's SearchServer (batching on) after warmup(), 8 client
+     threads (POST and GET /query) and a /wordlist poller in a process of
+     their own; two cycles of an append subprocess (10 pages through
+     index_page, each titled with a word no other page has) and POST
+     /refresh; after each, /healthz counts the new docs, the cycle's word
+     finds exactly its pages, the query mix through the server equals the
+     refreshed engine's plain path and K1 and K2 launched after the swap;
+     every answer of the load 200 JSON; after the last refresh's checks,
+     with the load paused and the server still up, and again after the
+     server's shutdown, memory_allocated below its level before the first
+     refresh plus half the index; each refresh's seconds and lock seconds,
+     the peak
+     max_memory_allocated and the load's req/s and p50/p99 during each
+     refresh and before the first;
+ 15. the soaks as the JAX package runs them, each a process of its own
+     with its server on the card: cli.soak --seconds 60 (no error, at least
+     2 refreshes) runs beside phase 3, and so does the set-up of
+     cli.soak_sharded --device cuda:0 --seconds 90 (its 524,288-doc store,
+     its server with 8 shards on the one card, its warm pass), which then
+     waits for its start file; its load and refreshes run after phase 14,
+     on their own (no error, at least 1 refresh, p50/p99). Phase 3 is
+     set-up too; the two run beside it so that the smoke keeps its time
+     limit.
+The wall seconds of each phase are printed before the kernels' line.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -84,6 +117,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import datetime
@@ -242,6 +276,25 @@ def check_ranked(queries: list[str], got: list[list[dict]], want: list[list[dict
     return n_hits
 
 
+def fetch(base: str, kind: str, arg: str, timeout: float = 300) -> tuple[int, object]:
+    """One request to the server at `base`: kind post (POST /query), get
+    (GET /query/{arg}), wordlist (GET /wordlist/{arg}), healthz or refresh
+    (POST /refresh). Raises on an HTTP error or a body that is not JSON.
+    -> (status, parsed body)."""
+    if kind in ("post", "refresh"):
+        path, payload = ("/query", {"query": arg}) if kind == "post" else ("/refresh", {})
+        req = urllib.request.Request(
+            base + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+    elif kind == "healthz":
+        req = base + "/healthz"
+    else:
+        req = base + ("/query/" if kind == "get" else "/wordlist/") + urllib.parse.quote(arg)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
 def send_jobs(base: str, jobs: list[tuple[str, str]], clients: int) -> tuple[dict, float]:
     """Send `jobs` ((kind, arg): post / get / wordlist) to the server at
     `base` from `clients` threads. Raises the first client error, and
@@ -251,26 +304,16 @@ def send_jobs(base: str, jobs: list[tuple[str, str]], clients: int) -> tuple[dic
     lock = threading.Lock()
     errors: list[BaseException] = []
 
-    def fetch(kind: str, arg: str) -> None:
+    def fetch_one(kind: str, arg: str) -> None:
         t = time.perf_counter()
-        if kind == "post":
-            req = urllib.request.Request(
-                base + "/query", data=json.dumps({"query": arg}).encode(),
-                headers={"Content-Type": "application/json"}, method="POST",
-            )
-        elif kind == "get":
-            req = base + "/query/" + urllib.parse.quote(arg)
-        else:
-            req = base + "/wordlist/" + urllib.parse.quote(arg)
-        with urllib.request.urlopen(req, timeout=300) as r:
-            status, body = r.status, json.loads(r.read())
+        status, body = fetch(base, kind, arg)
         with lock:
             results[(kind, arg)] = (status, body, time.perf_counter() - t)
 
     def client(part: list[tuple[str, str]]) -> None:
         try:
             for job in part:
-                fetch(*job)
+                fetch_one(*job)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
@@ -413,9 +456,10 @@ def library_calls(idx, n_words: int, batch: dict, want: list,
     return calls
 
 
-#: phase 10: the crawl's size (10 times the CLI's default of 500 pages),
+#: phase 10: the crawl's size (4 times the CLI's default of 500 pages; cut
+#: from 10,000 to 5,000 and then to 2,000 to hold the smoke's time limit),
 #: its ODP categories, and the time limit of the crawl subprocess
-CRAWL_PAGES = 5_000
+CRAWL_PAGES = 2_000
 ODP_CATEGORIES = 16
 CRAWL_TIMEOUT_S = 600
 HTTP_DATE = "Thu, 01 Jan 2026 00:00:00 GMT"
@@ -870,6 +914,368 @@ def mesh_phase(db, snap, engine, queries: list[str], kw_only: list[str], serving
     return out
 
 
+def entry_phase(smi: str, phase_launches: dict) -> dict:
+    """Phase 13 (see the module docstring). -> its report."""
+    import torch
+
+    from spaghettisearch_tpu_torch.graft_entry import dryrun_multichip, entry
+
+    t0 = time.perf_counter()
+    fn, example = entry("cuda")
+    reset_launches()
+    got = fn(*example)
+    torch.cuda.synchronize()
+    phase_launches["entry"] = launches()
+    with plain_kernels():
+        want = fn(*example)
+    if phase_launches["entry"]["mixed"] == 0:
+        raise RuntimeError(f"entry() did not launch K2: {phase_launches['entry']}")
+    if not same_topk(*got, *want, rtol=1e-6, atol=0.0):
+        raise RuntimeError("entry(): the top-10 differs from the plain path")
+    n_ranked = int(torch.isfinite(got[0]).sum())
+    t1 = time.perf_counter()
+    reset_launches()
+    out = dryrun_multichip(MESH_SHARDS)
+    torch.cuda.synchronize()
+    phase_launches["dryrun"] = n = launches()
+    if n["membership"] + n["mixed"] == 0 or n["membership"] % MESH_SHARDS or n["mixed"] % MESH_SHARDS:
+        raise RuntimeError(f"dryrun_multichip: K1/K2 launches {n} are not a positive multiple "
+                           f"of {MESH_SHARDS}")
+    results = out["results"]
+    if not (results and all(r["Url"].startswith("http") for r in results)):
+        raise RuntimeError("dryrun_multichip: the sharded server answered no http results")
+    reset_launches()
+    with plain_kernels():
+        want = dryrun_multichip(MESH_SHARDS)
+    if any(launches().values()):
+        raise RuntimeError(f"dryrun_multichip's plain path launched kernels: {launches()}")
+    if not same_topk(out["scores"], out["ids"], want["scores"], want["ids"], rtol=1e-6, atol=0.0):
+        raise RuntimeError("dryrun_multichip: the sharded scorer's top-10 differs from the plain path")
+    if not torch.allclose(out["ranks"].cpu(), want["ranks"].cpu(), rtol=1e-5, atol=1e-9):
+        raise RuntimeError("dryrun_multichip: the sharded PageRank differs from the plain path")
+    check_ranked(['ranking "quantum physics" search'], [results], [want["results"]],
+                 "dryrun_multichip")
+    say(f"# entry(): B=8 top-10 on the card equals the plain path ({n_ranked} ranked); launches "
+        f"{phase_launches['entry']}; {t1 - t0:.1f}s")
+    say(f"# dryrun_multichip({MESH_SHARDS}): a 2 x 2 mesh, shard s on cuda:{{s % "
+        f"{torch.cuda.device_count()}}}, scorer {tuple(out['scores'].shape)}"
+        f", sharded PageRank {tuple(out['ranks'].shape)}, {len(results)} HTTP results (first "
+        f"{results[0]['Url']}), each equal to the plain path; launches {n}; "
+        f"{time.perf_counter() - t1:.1f}s ({smi})")
+    return {"entry_ranked": n_ranked, "dryrun_results": len(results)}
+
+
+#: phase 14: refresh cycles, each appending REFRESH_PAGES pages (no links,
+#: so no stub docs) titled with a word no other page has
+REFRESH_CYCLES = 2
+REFRESH_PAGES = 10
+REFRESH_MARKERS = ("zzrefreshalpha", "zzrefreshbravo")
+REFRESH_SNIPPET = """
+import random, sys
+sys.path.insert(0, {here!r})
+from datetime import datetime, timezone
+from spaghettisearch_tpu_torch.corpus import make_page
+from spaghettisearch_tpu_torch.index.indexer import index_page
+from spaghettisearch_tpu_torch.store.tables import Database
+db = Database({root!r})
+rng = random.Random({seed})
+for i in range({n}):
+    url, html = make_page(rng, i, 1, {base!r})
+    html = html.replace(b"<title>", b"<title>{marker} ", 1)
+    index_page(db, html, url, last_modified=datetime(2026, 2, 1, tzinfo=timezone.utc))
+db.flush(); db.close()
+"""
+
+
+def _load_clients(base: str, jobs: list, clients: int, go, stop, busy, n_errors, out) -> None:
+    """The body of Load's process: `clients` threads cycling through their
+    share of `jobs`, and a /wordlist poller every half second, until `stop`;
+    a request starts only while `go` is set (`busy` counts those in flight).
+    Sends (records, errors) to `out` at the end."""
+    records: list[tuple[float, str, float]] = []
+    errors: list[str] = []
+
+    def client(part: list, every: float = 0.0) -> None:
+        i = 0
+        while not stop.is_set():
+            if not go.wait(0.05):
+                continue
+            with busy.get_lock():
+                if not go.is_set():
+                    continue
+                busy.value += 1
+            kind, arg = part[i % len(part)]
+            i += 1
+            t = time.monotonic()
+            try:
+                status, body = fetch(base, kind, arg)
+                if status != 200 or not isinstance(body, list):
+                    raise ValueError(f"status {status}, {type(body).__name__} body")
+                records.append((time.monotonic(), kind, time.monotonic() - t))
+            except Exception as e:  # noqa: BLE001 — counted, raised by the phase
+                errors.append(f"{kind} {arg!r}: {type(e).__name__}: {e}")
+                with n_errors.get_lock():
+                    n_errors.value += 1
+            finally:
+                with busy.get_lock():
+                    busy.value -= 1
+            if every:
+                stop.wait(every)
+
+    threads = [threading.Thread(target=client, args=(jobs[i::clients],)) for i in range(clients)]
+    threads.append(threading.Thread(target=client, args=(
+        [("wordlist", p) for p in ("w0", "w00", "w001", "w12")], 0.5)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out.send((records, errors))
+
+
+class Load:
+    """HTTP load on the server at `base` from a process of its own (the
+    clients do not share the server's interpreter lock): `clients` threads
+    cycling through their share of `jobs` ((kind, arg)) and a /wordlist
+    poller. pause() holds new requests and waits for those in flight;
+    resume() lets them go on; stop() ends the process. Every answer is
+    recorded as (time.monotonic() when done, kind, seconds); any answer
+    that is not 200 JSON is an error."""
+
+    def __init__(self, base: str, jobs: list[tuple[str, str]], clients: int) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._go, self._stop = ctx.Event(), ctx.Event()
+        self._busy, self._n_errors = ctx.Value("i", 0), ctx.Value("i", 0)
+        self._out, child = ctx.Pipe(duplex=False)
+        self._go.set()
+        self._proc = ctx.Process(target=_load_clients, args=(
+            base, jobs, clients, self._go, self._stop, self._busy, self._n_errors, child))
+        self._proc.start()
+        self.records: list[tuple[float, str, float]] = []
+        self.errors: list[str] = []
+
+    @property
+    def n_errors(self) -> int:
+        return self._n_errors.value
+
+    def pause(self) -> None:
+        self._go.clear()
+        while True:
+            with self._busy.get_lock():
+                if self._busy.value == 0:
+                    return
+            time.sleep(0.005)
+
+    def resume(self) -> None:
+        self._go.set()
+
+    def stop(self) -> None:
+        """End the load; collects its records and errors."""
+        if self._proc.is_alive():
+            self._stop.set()
+            self._go.set()
+            if self._out.poll(600):
+                self.records, self.errors = self._out.recv()
+            self._proc.join(60)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+
+    def stats(self, t0: float, t1: float) -> dict:
+        """Query answers done in [t0, t1] (time.monotonic()): count, req/s,
+        p50/p99 ms."""
+        lat = sorted(s for t, k, s in self.records if t0 <= t <= t1 and k != "wordlist")
+        if not lat:
+            return {"requests": 0, "req_per_s": 0.0, "p50_ms": None, "p99_ms": None}
+        return {"requests": len(lat), "req_per_s": len(lat) / (t1 - t0),
+                "p50_ms": 1e3 * lat[len(lat) // 2], "p99_ms": 1e3 * lat[int(len(lat) * 0.99)]}
+
+
+def refresh_phase(snap, queries: list[str], kw_only: list[str], smi: str,
+                  phase_launches: dict) -> dict:
+    """Phase 14 (see the module docstring). -> its report."""
+    import gc
+
+    import torch
+
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
+    from spaghettisearch_tpu_torch.serve.server import SearchServer
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "smoke_refresh")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, "build", "smoke_corpus"), root)
+    eng = QueryEngine(Database(root), snapshot=snap, device="cuda")
+    index_bytes = eng.index.device_bytes()
+    eng.warmup()
+    eng.prewarm_hydration()
+    eng.prewarm_wordlist()
+    server = SearchServer(eng, batching=True)
+    host, port = server.start_background(port=0)
+    base = f"http://{host}:{port}"
+    say(f"# refresh: store copied, engine up and warm in {time.perf_counter() - t_phase:.1f}s; "
+        f"index {index_bytes} device bytes")
+    load = Load(base, [("post", q) for q in queries] + [("get", q) for q in kw_only], CLIENTS)
+    report: dict = {"index_bytes": index_bytes, "cycles": []}
+    windows = {}  # time.monotonic() spans of the load's report
+    try:
+        time.sleep(2.0)  # the load's process starts
+        t_s = time.monotonic()
+        time.sleep(5.0)  # the load alone: its steady state before any refresh
+        load.pause()
+        windows["steady"] = (t_s, time.monotonic())
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        load.resume()
+        ref_q = queries + kw_only
+        for k in range(REFRESH_CYCLES):
+            marker = REFRESH_MARKERS[k]
+            site = f"http://refresh{k}.local"
+            t_a = time.perf_counter()
+            code = REFRESH_SNIPPET.format(here=HERE, root=root, seed=k, n=REFRESH_PAGES,
+                                          base=site, marker=marker)
+            out = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True,
+                                 text=True, timeout=600)
+            if out.returncode != 0:
+                raise RuntimeError(f"refresh: the append failed: {out.stderr[-2000:]}")
+            append_s = time.perf_counter() - t_a
+            t0 = time.monotonic()
+            _, r = fetch(base, "refresh", "", timeout=900)
+            windows[k] = (t0, time.monotonic())
+            if not r.get("ok"):
+                raise RuntimeError(f"refresh: /refresh answered {r}")
+            reset_launches()
+            time.sleep(2.0)  # the load on the new live state
+            load.pause()
+            want_docs = PAGES + REFRESH_PAGES * (k + 1)
+            _, health = fetch(base, "healthz", "")
+            if health.get("docs") != want_docs or r["docs"] != want_docs:
+                raise RuntimeError(f"refresh {k + 1}: /healthz {health}, /refresh {r}; want "
+                                   f"{want_docs} docs")
+            _, hits = fetch(base, "post", marker)
+            want_urls = {f"{site}/page{i}" for i in range(REFRESH_PAGES)}
+            if {h["Url"] for h in hits} != want_urls or len(hits) != REFRESH_PAGES:
+                raise RuntimeError(f"refresh {k + 1}: {marker!r} found {[h['Url'] for h in hits]}")
+            results, _ = send_jobs(base, [("post", q) for q in queries], CLIENTS)
+            results.update(send_jobs(base, [("get", q) for q in kw_only], 1)[0])
+            after = launches()
+            if min(after["membership"], after["mixed"]) == 0:
+                raise RuntimeError(f"refresh {k + 1}: K1/K2 launches after the swap {after}")
+            got = [results[("post", q)][1] for q in queries] + [results[("get", q)][1] for q in kw_only]
+            with plain_kernels():
+                ref = eng.query_batch(ref_q)
+            n_hits = check_ranked(ref_q, got, ref, f"refresh {k + 1}")
+            if load.n_errors:
+                raise RuntimeError(f"refresh {k + 1}: the load saw {load.n_errors} errors")
+            report["cycles"].append({"append_s": append_s, "seconds": r["seconds"],
+                                     "lock_seconds": r["lock_seconds"], "docs": r["docs"]})
+            phase_launches[f"refresh{k + 1}"] = after
+            say(f"# refresh {k + 1}: {REFRESH_PAGES} pages appended in {append_s:.1f}s; /refresh "
+                f"{r['seconds']} s (lock {r['lock_seconds']} s), docs {r['docs']}; {marker!r} "
+                f"finds its {REFRESH_PAGES} pages; {len(ref_q)} queries equal the plain path "
+                f"({n_hits} results); launches after the swap {after} ({smi})")
+            if k == REFRESH_CYCLES - 1:
+                # the server still up, the load paused, its batches since the
+                # swap drained: what the serving stack itself keeps alive
+                gc.collect()
+                torch.cuda.synchronize()
+                mem_live = torch.cuda.memory_allocated()
+            load.resume()
+        time.sleep(2.0)
+    finally:
+        load.stop()
+        server.shutdown()
+    if load.errors or load.n_errors:
+        raise RuntimeError(f"refresh: the load saw {load.n_errors} errors: {load.errors[:5]}")
+    report["steady"] = load.stats(*windows["steady"])
+    for k, cyc in enumerate(report["cycles"]):
+        cyc["load_during"] = load.stats(*windows[k])
+        say(f"# refresh {k + 1}: the load during it {json.dumps(cyc['load_during'])}")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    report.update(mem_before=mem_before, mem_live=mem_live, mem_after=mem_after,
+                  peak=torch.cuda.max_memory_allocated(), requests=len(load.records))
+    say(f"# refresh: device memory allocated {mem_before} before the first refresh, {mem_live} "
+        f"after the last with the server up and the load paused, {mem_after} after the "
+        f"server's shutdown (bound {mem_before + index_bytes // 2}: half the index), peak "
+        f"{report['peak']}; the load's steady state before {json.dumps(report['steady'])}; "
+        f"{len(load.records)} answers, no error; {time.perf_counter() - t_phase:.1f}s ({smi})")
+    for what, mem in (("with the server up", mem_live), ("after the shutdown", mem_after)):
+        if mem >= mem_before + index_bytes / 2:
+            raise RuntimeError(f"refresh: {mem - mem_before} more device bytes after "
+                               f"{REFRESH_CYCLES} refreshes, {what}: an old index is still alive")
+    eng.db.close()
+    return report
+
+
+#: phase 15: the soaks' durations, the sharded soak's store size and the
+#: time limit of each soak's wait
+SOAK_SECONDS = 60
+SOAK_SHARDED_SECONDS = 90
+SOAK_SHARDED_DOCS = 524_288
+SOAK_TIMEOUT_S = 900
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Soak:
+    """One soak (`cli.{name}`) in a process of its own, on a free port, its
+    store under build/ and its output in build/{name}.log; a process group
+    of its own, so that kill() ends its server and append processes too.
+    finish() waits for it, prints its refresh lines and its last line, and
+    holds it to its bounds."""
+
+    def __init__(self, name: str, args: list[str]) -> None:
+        self.name = name
+        self.log = os.path.join(HERE, "build", f"{name}.log")
+        cmd = [sys.executable, "-m", f"spaghettisearch_tpu_torch.cli.{name}", *args,
+               "--root", os.path.join(HERE, "build", f"{name}_db"), "--port", str(free_port())]
+        with open(self.log, "wb") as out:
+            self.proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+                                         start_new_session=True)
+
+    def kill(self) -> None:
+        import signal
+
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+    def finish(self, want_refreshes: int, smi: str, note: str = "") -> dict:
+        try:
+            self.proc.wait(timeout=SOAK_TIMEOUT_S)
+        finally:
+            self.kill()
+        with open(self.log, errors="replace") as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            if line.startswith(("wrote ", "load starts", "refresh #")):
+                say(f"# {self.name}: {line}")
+        rep = next((json.loads(line) for line in reversed(lines)
+                    if line.startswith('{"counts"')), None)
+        if self.proc.returncode != 0 or rep is None:
+            raise RuntimeError(f"{self.name} failed ({self.proc.returncode}): "
+                               f"{chr(10).join(lines[-40:])}")
+        c = rep["counts"]
+        if rep["n_errors"] or c["refreshes"] < want_refreshes or c["queries"] == 0:
+            raise RuntimeError(f"{self.name}: {rep}")
+        if "p50_s" in rep and (rep["p50_s"] is None or rep["p99_s"] is None):
+            raise RuntimeError(f"{self.name}: no latency: {rep}")
+        say(f"# {self.name}: {json.dumps(rep)}{note} ({smi})")
+        return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="corpus and query seed")
@@ -881,14 +1287,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
-    from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
-    from spaghettisearch_tpu_torch.models.blended import BlendedRanker
-    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
-    from spaghettisearch_tpu_torch.ops import scoring
-    from spaghettisearch_tpu_torch.ops.kernels import check, mixed
-    from spaghettisearch_tpu_torch.retrieval import device_index
-    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
 
     t_start = time.perf_counter()
     # 1. the card
@@ -901,8 +1299,37 @@ def main() -> int:
     say(f"# device: {name} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     say(smi)
 
+    t_lap = [t_start]
+    phase_s: dict[str, float] = {}
+
+    def lap(what: str) -> None:
+        """Record the wall seconds of the phases that just ended."""
+        now = time.perf_counter()
+        phase_s[what] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     # 2. build
     build_all()
+    lap("1-2 card, build")
+    # phase 15's set-up beside phase 3 (see the module docstring): cli.soak,
+    # and cli.soak_sharded as far as its load
+    go = os.path.join(HERE, "build", "soak_sharded.go")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(go)
+    soak = Soak("soak", ["--seconds", str(SOAK_SECONDS)])
+    sharded = Soak("soak_sharded", ["--seconds", str(SOAK_SHARDED_SECONDS), "--device", "cuda:0",
+                                    "--docs", str(SOAK_SHARDED_DOCS), "--startFile", go])
+    atexit.register(soak.kill)
+    atexit.register(sharded.kill)
+
+    from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
+    from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
+    from spaghettisearch_tpu_torch.models.blended import BlendedRanker
+    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+    from spaghettisearch_tpu_torch.ops import scoring
+    from spaghettisearch_tpu_torch.ops.kernels import check, mixed
+    from spaghettisearch_tpu_torch.retrieval import device_index
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
 
     # 3. corpus + index
     t0 = time.perf_counter()
@@ -932,6 +1359,12 @@ def main() -> int:
         f"zero weights {idx.has_zero_weight}, device bytes {idx.device_bytes()}"
     )
 
+    lap("3 corpus, index")
+    # cli.soak, beside phase 3
+    soak.finish(2, smi, " (beside phase 3)")
+    if sharded.proc.poll() is not None:
+        sharded.finish(1, smi)  # raises: it ended before its load
+    lap("3 the wait for cli.soak")
     # 4. kernels vs plain versions on the card
     t0 = time.perf_counter()
     df = snap.body.df(range(snap.n_words)).astype("float64")
@@ -1127,6 +1560,7 @@ def main() -> int:
         f"{custom_ms:.4f} ms per B=128 batch ({smi}); kernel phase "
         f"{time.perf_counter() - t0:.1f}s")
     phase_launches = {}
+    lap("4 kernels")
 
     # 5. serving through the port's HTTP front end (the reference blend)
     t0 = time.perf_counter()
@@ -1250,17 +1684,36 @@ def main() -> int:
         f"{len(csr_q)} queries through score_csr ({csr_calls[0]} calls, {matcher[0]} CSR "
         f"matcher calls) equal the dense plain path ({n_hits} results); "
         f"{time.perf_counter() - t0:.1f}s")
+    lap("5-9 serving, fused, custom, bm25, csr")
     # 10. the offline build: crawl CLI on the card over a local site
     crawl_phase(args.seed, smi, phase_launches)
+    lap("10 crawl")
     # 11. PageRank at full size on the card: the 100k corpus's link graph
     pagerank_phase(db, args.seed, smi)
+    lap("11 pagerank")
     # 12. the doc-sharded mesh on the card
     mesh = mesh_phase(db, snap, engine, queries, kw_only, serving_ref, df, smi, phase_launches)
+    lap("12 mesh")
     for kname in ("membership_shard", "mixed_shard"):
         records[kname] = mesh[kname]["checks"]
         times[kname] = mesh[kname]["times"]
         bounds[kname] = mesh[kname]["bound"]
         library[kname] = mesh[kname]["library"]
+    # 13. the graft entry points on the card
+    entry_phase(smi, phase_launches)
+    lap("13 entry")
+    # 14. refresh under load on one card at the 100k corpus
+    refresh_phase(snap, queries, kw_only, smi, phase_launches)
+    lap("14 refresh")
+    # 15. the sharded soak's load and refreshes, on their own
+    t0 = time.perf_counter()
+    with open(go, "w"):
+        pass
+    sharded.finish(1, smi, " (its load and refreshes alone, after phase 14)")
+    say(f"# soak_sharded: {time.perf_counter() - t0:.1f}s from its start file to its end")
+    lap("15 the sharded soak's load")
+    say(f"# launches per path: {json.dumps(phase_launches)}")
+    say(f"# phase seconds: {json.dumps(phase_s)}")
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -18,16 +18,26 @@ reference model, on `device`) and the term weighting pass
 (ops/weighting.py). So the store holds what bench.py's does, anchor text
 included: a link's text is a body word of the linking page and a title
 posting of its target at the -100 sentinel position.
+
+The small fixture corpus of the JAX package's tests (tests/corpus.py) is
+here too, so that the port's graft entry points, soaks and tests need no
+file of the JAX package: `VOCAB`, `make_page` and `build_corpus_db` draw
+from `random.Random` exactly as the original and index through this
+package's indexer, PageRank (on `device`) and term weighting. And
+`synth_snapshot` is bench.py's synthetic Zipf index (the same numpy draws
+in the same order), returned as this package's IndexSnapshot.
 """
 
 from __future__ import annotations
 
+import random
 import time
 from datetime import datetime, timezone
 
 import numpy as np
 
 from .index.indexer import index_page
+from .index.snapshot import IndexSnapshot, SectionCSR, _pad_to
 from .ops.pagerank import update_pagerank
 from .ops.weighting import update_term_weights
 from .store.tables import Database
@@ -146,3 +156,150 @@ def make_queries(snap, db, n_queries: int, seed: int = 1) -> list[str]:
                     break
         out.append(q)
     return out
+
+
+# --------------------------------------------------------------------- #
+# the JAX package's test fixture corpus (tests/corpus.py)
+# --------------------------------------------------------------------- #
+VOCAB = (
+    "algorithm database retrieval ranking crawler spider index engine "
+    "vector cosine matrix tensor gradient neural network graph node edge "
+    "compiler kernel memory bandwidth latency throughput query document "
+    "cluster shard replica partition stream batch pipeline schedule "
+    "quantum physics chemistry biology astronomy galaxy planet orbit "
+    "history culture music painting sculpture poetry novel theater"
+).split()
+
+
+def make_page(rng: random.Random, i: int, n_pages: int, base: str) -> tuple[str, bytes]:
+    url = f"{base}/page{i}"
+    title_words = rng.sample(VOCAB, rng.randint(1, 4))
+    body_words = [rng.choice(VOCAB) for _ in range(rng.randint(20, 80))]
+    n_links = rng.randint(0, min(5, n_pages - 1))
+    links = rng.sample([j for j in range(n_pages) if j != i], n_links)
+    anchors = "".join(
+        f'<a href="/page{j}">{" ".join(rng.sample(VOCAB, rng.randint(1, 3)))}</a>\n'
+        for j in links
+    )
+    meta = ""
+    if rng.random() < 0.3:
+        meta = f'<meta name="description" content="{" ".join(rng.sample(VOCAB, 3))}">'
+    html = f"""<html><head><title>{' '.join(title_words)}</title>{meta}</head>
+<body><h1>Page {i}</h1>
+<p>{' '.join(body_words)}</p>
+{anchors}
+</body></html>"""
+    return url, html.encode()
+
+
+def build_corpus_db(n_pages: int = 20, seed: int = 0, root: str | None = None,
+                    device: str = "cuda") -> Database:
+    """Index a random small site, then run PageRank (on `device`) + term
+    weighting (the reference's post-crawl batch jobs,
+    cmd/crawl/start_crawl.go:174-177)."""
+    rng = random.Random(seed)
+    db = Database(root)
+    base = "http://test.local"
+    # a couple of topic categories so the rank table has category keys
+    db.topic_meta.set("Science", {"numPages": float(n_pages), "wordCount": 100.0})
+    db.topic_meta.set("Arts", {"numPages": float(2 * n_pages), "wordCount": 80.0})
+
+    ts = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    with db.bulk():
+        for i in range(n_pages):
+            url, html = make_page(rng, i, n_pages, base)
+            index_page(db, html, url, last_modified=ts)
+
+    update_pagerank(db, device=device)
+    update_term_weights(db, "title")
+    update_term_weights(db, "body")
+    return db
+
+
+# --------------------------------------------------------------------- #
+# bench.py's synthetic index (synth_snapshot)
+# --------------------------------------------------------------------- #
+def synth_snapshot(
+    n_docs: int = 100_000,
+    n_words: int = 50_000,
+    body_terms_per_doc: int = 64,
+    title_terms_per_doc: int = 6,
+    max_df: int = 16_384,
+    seed: int = 0,
+) -> IndexSnapshot:
+    """Synthesize a Zipf-distributed CSR index directly (no host store):
+    equivalent in shape/statistics to a crawled 100k-page corpus after
+    stopword filtering (which bounds the hottest term's df)."""
+    rng = np.random.default_rng(seed)
+
+    def make_section(terms_per_doc: int) -> SectionCSR:
+        # sample word ids with a Zipf-ish distribution
+        probs = 1.0 / np.arange(1, n_words + 1) ** 1.05
+        probs /= probs.sum()
+        total = n_docs * terms_per_doc
+        words = rng.choice(n_words, size=total, p=probs).astype(np.int32)
+        docs = np.repeat(np.arange(n_docs, dtype=np.int32), terms_per_doc)
+        # unique (word, doc), then truncate hot rows to max_df
+        key = words.astype(np.int64) * n_docs + docs
+        key = np.unique(key)
+        words = (key // n_docs).astype(np.int32)
+        docs = (key % n_docs).astype(np.int32)
+        # truncate per-word postings at max_df (order is word-major, doc asc)
+        counts = np.bincount(words, minlength=n_words)
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        rank_in_row = np.arange(len(words)) - offsets[words]
+        keep = rank_in_row < max_df
+        words, docs = words[keep], docs[keep]
+        counts = np.bincount(words, minlength=n_words)
+        post_offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        n_post = len(words)
+
+        tf = rng.integers(1, 8, n_post).astype(np.float32)
+        idf = np.log2(n_docs / np.maximum(counts, 1)).astype(np.float32)
+        weights = (tf / 8.0) * idf[words]
+
+        p_pad = _pad_to(n_post)
+        doc_ids = np.full(p_pad, n_docs, np.int32)
+        doc_ids[:n_post] = docs
+        w = np.zeros(p_pad, np.float32)
+        w[:n_post] = weights
+        # single position per posting (keyword bench doesn't exercise phrase)
+        pos_offsets = np.arange(p_pad + 1, dtype=np.int32)
+        pos_offsets[n_post:] = n_post
+        l_pad = _pad_to(n_post)
+        positions = np.full(l_pad, np.inf, np.float32)
+        positions[:n_post] = rng.integers(0, 500, n_post).astype(np.float32)
+        return SectionCSR(
+            post_offsets=post_offsets,
+            doc_ids=doc_ids,
+            weights=w,
+            pos_offsets=pos_offsets,
+            positions=positions,
+            n_postings=n_post,
+            max_df=int(counts.max()),
+            max_positions=1,
+        )
+
+    body = make_section(body_terms_per_doc)
+    title = make_section(title_terms_per_doc)
+
+    # magnitudes consistent with the weights
+    def mags(csr) -> np.ndarray:
+        m = np.zeros(n_docs + 1, np.float64)
+        np.add.at(m, csr.doc_ids[: csr.n_postings], csr.weights[: csr.n_postings] ** 2)
+        return np.sqrt(m[:n_docs]).astype(np.float32)
+
+    doc_hashes = [f"d{i:07d}" for i in range(n_docs)]
+    word_hashes = [f"w{i:07d}" for i in range(n_words)]
+    return IndexSnapshot(
+        doc_hashes=doc_hashes,
+        word_hashes=word_hashes,
+        doc_id={},
+        word_id={},
+        title=title,
+        body=body,
+        mag_title=mags(title),
+        mag_body=mags(body),
+        categories=["general"],
+        pagerank=np.abs(rng.normal(size=(n_docs, 1))).astype(np.float32) / n_docs,
+    )

@@ -304,6 +304,17 @@ class QueryEngine:
         self.snapshot, self.index = snapshot, index
         return old_db
 
+    def refresh(self) -> None:
+        """Rebuild the snapshot + device index from the store and swap
+        atomically. In-flight queries holding the old live triple keep the
+        old tensors alive (but the server must serialize refresh vs store
+        readers — see serve/server.py's reader-writer lock). Convenience
+        form for batch jobs/tests: skips the off-lock warmup (the server's
+        /refresh calls prepare_refresh() directly, which warms)."""
+        old_db = self.commit_refresh(self.prepare_refresh(warm=False))
+        if old_db is not None:
+            old_db.close()
+
     # ------------------------------------------------------------------ #
     # device ranking
     # ------------------------------------------------------------------ #

@@ -3,7 +3,7 @@
 The reference only has ad-hoc wall-clock prints (e.g. crawler/crawler.go:118,126,
 cmd/server/server.go:46-50). Here tracing is a first-class module: nested spans
 with wall-clock durations, queryable counters, and an optional hook into
-jax.profiler for device traces.
+torch.profiler for device traces.
 """
 
 from __future__ import annotations
@@ -64,5 +64,21 @@ class Tracer:
 #: Process-wide default tracer.
 TRACER = Tracer()
 
-# Device traces come from torch.profiler (experiments/torch_profile.py);
-# the jax.profiler hook has no counterpart in this package.
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a torch.profiler trace around a block (host activity, and
+    the CUDA kernels when CUDA is present); writes a Chrome trace file into
+    `logdir` when the block exits."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

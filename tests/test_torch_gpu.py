@@ -4,7 +4,9 @@ path's full widths (B=128, Q=4/32, P=16), all four also on the batches
 that stress their probe tables (and each table build against its plain
 version), and the CUDA engine against the CPU engine on the reference
 blend, BM25, a custom blend and the CSR route; the doc-sharded mesh with
-its shards on the card against the same mesh on the CPU.
+its shards on the card against the same mesh on the CPU; refresh on the
+card (appended docs, and the device memory an old index must give back);
+the graft entry points on the card against the CPU.
 
 This file imports no jax: on the card run it as
 
@@ -567,3 +569,112 @@ def test_server_cli_mesh_on_cuda(cuda, tmp_path, monkeypatch):
     finally:
         server.shutdown()
         server.engine.db.close()
+
+
+# --- the live index and the graft entry points on the card ----------------------
+
+def _append_marked(db, n: int, marker: str, seed: int) -> list[str]:
+    """Index n make_page pages into db, each titled with `marker` too and
+    linking nowhere (so no stub docs). -> their URLs."""
+    import random
+    from datetime import datetime, timezone
+
+    from spaghettisearch_tpu_torch.corpus import make_page
+    from spaghettisearch_tpu_torch.index.indexer import index_page
+
+    rng = random.Random(seed)
+    urls = []
+    for i in range(n):
+        url, html = make_page(rng, i, 1, f"http://append{seed}.local")
+        index_page(db, html.replace(b"<title>", f"<title>{marker} ".encode(), 1), url,
+                   last_modified=datetime(2026, 2, 1, tzinfo=timezone.utc))
+        urls.append(url)
+    return urls
+
+
+def test_engine_refresh_on_cuda(cuda, tmp_path):
+    """refresh() on the card picks up appended docs, and the refreshed
+    engine ranks as the CPU engine (the plain versions) on the same store."""
+    db = write_corpus(str(tmp_path / "db"), n_pages=600, n_vocab=3000, seed=2)
+    eng = QueryEngine(db, device=cuda)
+    n0 = eng.index.n_docs
+    urls = _append_marked(db, 10, "zzmarkerone", seed=1)
+    eng.refresh()
+    assert eng.index.n_docs == n0 + 10 and eng.index.title.fwd.ftT.device.type == "cuda"
+    assert sorted(r["Url"] for r in eng.query("zzmarkerone")) == sorted(urls)
+    queries = make_queries(eng.snapshot, eng.db, 48, seed=4)
+    parsed = [parse_query(q) for q in queries]
+    k2.reset_launches()
+    _engines_agree(eng, QueryEngine(eng.db, snapshot=eng.snapshot, device="cpu"), parsed, queries)
+    assert k2.LAUNCHES >= 1
+    eng.db.close()
+
+
+def test_refresh_frees_device_memory(cuda, tmp_path):
+    """Three /refresh swaps under the batching server, a query after each:
+    the device memory left allocated stays below its level before the first
+    refresh plus half the index (an old index kept alive adds a whole one)."""
+    import gc
+
+    from spaghettisearch_tpu_torch.serve.server import SearchServer
+
+    db = write_corpus(str(tmp_path / "db"), n_pages=3000, n_vocab=8000, seed=3)
+    srv = SearchServer(QueryEngine(db, device=cuda), batching=True, max_wait_ms=0.5)
+    try:
+        for q in ("w00100 w00200", '"w00100 w00200"'):
+            srv.handle_query(q)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        index_bytes = srv.engine.index.device_bytes()
+        for k in range(3):
+            _append_marked(srv.engine.db, 10, f"zzmark{k}", seed=10 + k)
+            r = srv.handle_refresh()
+            assert r["ok"] and r["docs"] == srv.engine.index.n_docs == 3000 + 10 * (k + 1)
+            assert len(srv.handle_query(f"zzmark{k}")) == 10
+        srv.handle_query('"w00100 w00200"')
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        assert after < before + index_bytes / 2, (before, after, index_bytes)
+    finally:
+        srv.batcher.shutdown()
+        srv.engine.db.close()
+
+
+def test_entry_on_cuda_matches_cpu(cuda):
+    from spaghettisearch_tpu_torch.graft_entry import entry
+
+    fn, args = entry("cuda")
+    assert all(a.device.type == "cuda" for a in args)
+    k2.reset_launches()
+    got = fn(*args)
+    assert k2.LAUNCHES == 1
+    cfn, cargs = entry("cpu")
+    want = cfn(*cargs)
+    for row in range(8):
+        g = [(int(d), float(s)) for s, d in zip(*(t[row].cpu().numpy() for t in got)) if np.isfinite(s)]
+        w = [(int(d), float(s)) for s, d in zip(*(t[row].numpy() for t in want)) if np.isfinite(s)]
+        assert _same_up_to_ties(g, w), row
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=1e-6)
+
+
+def test_dryrun_multichip_on_cuda(cuda):
+    from spaghettisearch_tpu_torch.graft_entry import dryrun_multichip
+
+    k1.reset_launches()
+    k2.reset_launches()
+    out = dryrun_multichip(2)
+    assert out["scores"].device.type == "cuda" and out["ranks"].device.type == "cuda"
+    # the scorer's batch runs K1 once per shard, the HTTP query K2
+    assert min(k1.LAUNCHES, k2.LAUNCHES) >= 2 and k1.LAUNCHES % 2 == k2.LAUNCHES % 2 == 0
+    want = dryrun_multichip(2, devices=["cpu"] * 2)
+    for row in range(2):
+        g = [(int(d), float(s)) for s, d in zip(out["scores"][row].cpu().numpy(),
+                                                 out["ids"][row].cpu().numpy()) if np.isfinite(s)]
+        w = [(int(d), float(s)) for s, d in zip(want["scores"][row].numpy(),
+                                                 want["ids"][row].numpy()) if np.isfinite(s)]
+        assert g and _same_up_to_ties(g, w), row
+    np.testing.assert_allclose(out["ranks"].cpu().numpy(), want["ranks"].numpy(), rtol=1e-5)
+    rows = [[(r["Url"], r["FinalRank"]) for r in res] for res in (out["results"], want["results"])]
+    assert _same_up_to_ties(*rows)

@@ -128,8 +128,8 @@ def test_port_source_never_imports_jax():
 
 #: host modules carried over verbatim: only import lines may differ, plus
 #: the listed substitutions (original, copy): comment wording that names the
-#: original's own workspace, and the jax.profiler hook, which has no
-#: counterpart in the port
+#: original's own workspace, and the body of the device-trace hook
+#: (jax.profiler in the original, torch.profiler in the port)
 COPIES = {
     "config.py": (),
     "store/__init__.py": (),
@@ -143,15 +143,26 @@ COPIES = {
     "utils/__init__.py": (),
     "utils/hashing.py": (),
     "utils/rwlock.py": (),
-    "utils/timing.py": ((
-        '\n\n@contextlib.contextmanager\ndef device_trace(logdir: str):\n'
-        '    """Capture a jax.profiler device trace around a block."""\n'
-        '    import jax\n\n'
-        '    jax.profiler.start_trace(logdir)\n    try:\n        yield\n'
-        '    finally:\n        jax.profiler.stop_trace()\n',
-        '\n# Device traces come from torch.profiler (experiments/torch_profile.py);\n'
-        '# the jax.profiler hook has no counterpart in this package.\n',
-    ),),
+    "utils/timing.py": (
+        ("hook into\njax.profiler for", "hook into\ntorch.profiler for"),
+        ('    """Capture a jax.profiler device trace around a block."""\n'
+         '    import jax\n\n'
+         '    jax.profiler.start_trace(logdir)\n    try:\n        yield\n'
+         '    finally:\n        jax.profiler.stop_trace()\n',
+         '    """Capture a torch.profiler trace around a block (host activity, and\n'
+         '    the CUDA kernels when CUDA is present); writes a Chrome trace file into\n'
+         '    `logdir` when the block exits."""\n'
+         '    import os\n\n'
+         '    import torch\n'
+         '    from torch.profiler import ProfilerActivity, profile\n\n'
+         '    activities = [ProfilerActivity.CPU]\n'
+         '    if torch.cuda.is_available():\n'
+         '        activities.append(ProfilerActivity.CUDA)\n'
+         '    os.makedirs(logdir, exist_ok=True)\n'
+         '    with profile(activities=activities) as prof:\n'
+         '        yield\n'
+         '    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))\n'),
+    ),
     "index/snapshot.py": (),
     "index/persist.py": (),
     "index/indexer.py": (),
@@ -275,7 +286,7 @@ def test_ported_host_code_matches_original():
         "_hyd_sidecar_key", "_load_hyd_sidecar", "_save_hyd_sidecar", "_doc_record",
         "_topic_pagerank", "_keep", "hydrate_row", "hydrate_row_json",
         "prewarm_wordlist", "wordlist", "_fill_keyword_rows", "_hot_map",
-        "class_batching_pays", "commit_refresh", "_phrase_weights",
+        "class_batching_pays", "commit_refresh", "refresh", "_phrase_weights",
     ):
         assert _func_src(getattr(teng.QueryEngine, name)) == _func_src(
             getattr(jeng.QueryEngine, name)
@@ -389,6 +400,47 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
             [sys.executable, script], cwd=cwd, capture_output=True, text=True, timeout=120,
         )
         assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("which", ["soak", "soak_sharded", "chip_smoke"])
+def test_soak_append_snippets_run_without_jax(which, tmp_path):
+    """The code strings run in append subprocesses (the soaks' and
+    chip_smoke.py's refresh phase) import nothing of jax, lxml, aiohttp or
+    the JAX package: each runs under the import blocker and appends to a
+    fresh store."""
+    import importlib
+    import importlib.util
+
+    root = str(tmp_path / "db")
+    if which == "chip_smoke":
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_snippet", os.path.join(REPO, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        snippet = mod.REFRESH_SNIPPET.format(here=REPO, root=root, seed=0, n=mod.REFRESH_PAGES,
+                                             base="http://refresh0.local",
+                                             marker=mod.REFRESH_MARKERS[0])
+        want_docs = mod.REFRESH_PAGES
+    else:
+        mod = importlib.import_module(f"spaghettisearch_tpu_torch.cli.{which}")
+        fields = {"repo": REPO, "root": root, "seed": 1000, "base": 1000, "count": 64,
+                  "start": 0}
+        snippet = mod.APPEND_SNIPPET.format(**fields)
+        want_docs = 10 if which == "soak" else 64
+    for node in ast.walk(ast.parse(snippet)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module]
+            assert all(n.split(".")[0] not in _FORBIDDEN for n in names), (which, names)
+    code = _BLOCKER + snippet + textwrap.dedent(f"""
+        bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
+        assert not bad, bad
+        from spaghettisearch_tpu_torch.store.tables import Database
+        print("docs", len(Database({root!r}).doc_info))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split("docs")[-1]) >= want_docs
 
 
 def test_wrappers_raise_on_other_devices():
