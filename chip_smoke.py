@@ -8,18 +8,22 @@ Phases (any failure raises and the script exits non-zero):
   2. build: `make -C native` and the three CUDA sources of csrc/
      (membership.cu: K1 + K3, mixed.cu: K2, fused.cu: K4), all at once
      (nvcc for sm_90a; ptxas registers / shared memory / spills printed);
-  3. corpus: the seeded benchmark corpus (corpus.py) written to
-     build/smoke_corpus, its snapshot, and the device index;
+  3. corpus: the seeded benchmark corpus built by the port's bench
+     (bench.py build_bench_corpus: corpus.py's pages through the indexer,
+     PageRank on the card, term weights) into build/bench/corpus100k, its
+     store, saved snapshot and BUILT.json, where phase 16's bench modes
+     find it; the device index;
   4. kernels vs their plain versions on the card at the main path's shapes,
      with CUDA-event times of both: K1 at B=128 with Q=4 and Q=32, both
      count variants, the hot split, the doc-sorted bound on and off; K2 at
      B=128 (Q=4, P=16) and at the serving shape B=16 (Q=4, P=4), int16 and
-     f32 planes, both count variants; K1 and K2 on the adversarial batches
-     that stress their probe tables (check.ADVERSARIAL, B=128), and K2 on
+     f32 planes, both count variants; K1, K2, K3 (title and body, both
+     count variants) and K4 (C=1 and C=8) on the adversarial batches that
+     stress their probe tables (check.ADVERSARIAL, B=128), and K2 on
      log_full at B=16 too (with every_row, docs overflow K2's phrase-hit
-     log: the rescan path); K3 (title and body, both count variants) and
-     K4 (C=1 and C=8) on the same batches; each batch's probe tables, as
-     the K1/K2/K3/K4 entry points build them, equal to their plain build;
+     log: the rescan path), these run in phase 16, beside the bench's
+     oracle modes; each batch's probe tables, as the K1/K2/K3/K4 entry
+     points build them, equal to their plain build;
      K3 (one section) at B=128, Q=4 and Q=32, both count variants,
      qn-sorted rows; K4 (fused) at B=128, Q=4 and Q=32, topics off (C=1)
      and a seeded C=8 blend; each kernel's bound from this run's data
@@ -66,10 +70,11 @@ Phases (any failure raises and the script exits non-zero):
      traffic): the build's D_l, layout and device bytes per shard; K1 and
      K2 at one shard's [T, D_l] against their plain versions (the
      membership_shard and mixed_shard records); B=128 keyword and mixed
-     batches of the query mix through the S=4 mesh, a BM25 mesh, a forced
-     doc-sorted mesh and a 2-D (q=2, d=2) mesh, each top-50 equal to the
-     single-device engine on the card (scores within rtol 1e-5, atol 1e-7)
-     with both engines' ms per batch; the HTTP front end over the S=4 mesh
+     batches of the query mix through the S=4 mesh and a 2-D (q=2, d=2)
+     mesh, and in phase 16 (beside the bench's oracle modes) a BM25 mesh
+     and a forced doc-sorted mesh (its doc_perm built), each top-50 equal
+     to the single-device engine on the card (scores within rtol 1e-5,
+     atol 1e-7) with both engines' ms per batch; the HTTP front end over the S=4 mesh
      after warmup() answers the serving phase's requests from 8 clients,
      every response 200 and equal to the single-device plain path, K1 and
      K2 launched a positive multiple of 4 times; sharded_pagerank on the
@@ -86,9 +91,9 @@ Phases (any failure raises and the script exits non-zero):
  14. refresh under load at the 100k corpus: a copy of the corpus store
      behind the port's SearchServer (batching on) after warmup(), 8 client
      threads (POST and GET /query) and a /wordlist poller in a process of
-     their own; two cycles of an append subprocess (10 pages through
+     their own; one cycle of an append subprocess (10 pages through
      index_page, each titled with a word no other page has) and POST
-     /refresh; after each, /healthz counts the new docs, the cycle's word
+     /refresh; after it, /healthz counts the new docs, the cycle's word
      finds exactly its pages, the query mix through the server equals the
      refreshed engine's plain path and K1 and K2 launched after the swap;
      every answer of the load 200 JSON; after the last refresh's checks,
@@ -104,9 +109,26 @@ Phases (any failure raises and the script exits non-zero):
      cli.soak_sharded --device cuda:0 --seconds 90 (its 524,288-doc store,
      its server with 8 shards on the one card, its warm pass), which then
      waits for its start file; its load and refreshes run after phase 14,
-     on their own (no error, at least 1 refresh, p50/p99). Phase 3 is
+     on their own (no error, at least 1 refresh, p50/p99, and its server
+     segregating phrase-class batches, as it does from 2^19 docs). Phase 3 is
      set-up too; the two run beside it so that the smoke keeps its time
      limit.
+ 16. the port's bench (spaghettisearch_tpu_torch/bench.py), each mode in a
+     process of its own on the card, on phase 3's corpus: parity with 256
+     queries against the reference-semantics oracle (recall@10 1.0, every
+     top-50 divergence tie-explained, score_max_rel_err <= 1e-6, K2
+     launched: its 64-query batches each hold a phrase), parity_rare (the
+     same bars in each of its six families, in three processes; K1 in
+     kw_catchall, K2 in big_batch), serve --routeMix (512 connections, the server in a
+     subprocess: every answer 200, the contract on one request, all three
+     routes answered), scale1m (1M synthetic docs at B=256: K1 launched,
+     the first batch's top-10 equal to the plain path; the index's device
+     bytes and the memory_allocated peak) and sparse2m's body at 100k (no
+     position planes with the posT budget at 0, the sparse lane's matcher
+     ran, every divergence from the oracle tie-explained). These run at
+     once, with phase 4's adversarial batches and phase 12's BM25 and
+     doc-sorted meshes in this process meanwhile (the oracle is host
+     Python, so the card is mostly idle); serve runs alone after them.
 The wall seconds of each phase are printed before the kernels' line.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
@@ -544,7 +566,7 @@ def build_all() -> list:
 
 def crawl_phase(seed: int, smi: str, phase_launches: dict) -> dict:
     """Phase 10 (see the module docstring). -> the crawl's report."""
-    from spaghettisearch_tpu_torch.corpus import make_queries
+    from spaghettisearch_tpu_torch.corpus import bench_queries
     from spaghettisearch_tpu_torch.crawl.localsite import LocalSite
     from spaghettisearch_tpu_torch.evaluation import compare_rankings
     from spaghettisearch_tpu_torch.index.indexer import index_page
@@ -618,7 +640,7 @@ def crawl_phase(seed: int, smi: str, phase_launches: dict) -> dict:
     crawl_snap = load_snapshot(os.path.join(crawl_root, "snapshot"))
     topic = QueryEngine(crawled, snapshot=crawl_snap, device="cuda", use_topic_model=True)
     topic.warmup()
-    crawl_q = make_queries(crawl_snap, crawled, 96, seed=seed + 2)
+    crawl_q = bench_queries(crawl_snap, 96, seed=seed + 2, phrase_every=4, db=crawled)
     reset_launches()
     got = topic.query_batch(crawl_q)
     phase_launches["crawl_serving"] = launches()
@@ -727,7 +749,9 @@ def mesh_phase(db, snap, engine, queries: list[str], kw_only: list[str], serving
     """Phase 12 (see the module docstring). `engine` is the single-device
     engine on the card and `serving_ref` its plain-path answers to
     queries + kw_only. -> per kernel ("membership_shard", "mixed_shard"):
-    its checks, (ms, plain ms), bound and library ms at one shard's shape."""
+    its checks, (ms, plain ms), bound and library ms at one shard's shape;
+    and "variants": a function that holds the BM25 and the doc-sorted
+    meshes to their single-device engines (phase 16 runs it)."""
     import numpy as np
     import torch
 
@@ -823,7 +847,6 @@ def mesh_phase(db, snap, engine, queries: list[str], kw_only: list[str], serving
     mixed_parsed = [parse_query(q) for q in queries[:128]]
     if len(kw_parsed) != 128 or not any(p.phrase_hashes for p in mixed_parsed):
         raise RuntimeError("the query mix has no B=128 keyword or mixed batch")
-    bm25_single = QueryEngine(db, snapshot=snap, index=engine.index, device="cuda", model=BM25Ranker())
 
     def hold_ranks(what: str, eng, single) -> None:
         for kind, parsed in (("keyword", kw_parsed), ("mixed", mixed_parsed)):
@@ -838,16 +861,25 @@ def mesh_phase(db, snap, engine, queries: list[str], kw_only: list[str], serving
                 f"{ms1:.4f} ms single-device ({smi})")
 
     hold_ranks(f"S={MESH_SHARDS}", mesh, engine)
-    for what, kw, single in (("bm25", {"model": BM25Ranker()}, bm25_single),
-                             ("doc-sorted", {"doc_sort": True}, engine),
-                             ("2-D q=2 x d=2", {"n_query_rows": 2}, engine)):
-        n_d = 2 if "n_query_rows" in kw else MESH_SHARDS
-        other = build(what, n_shards=n_d, **kw)
-        if "doc_sort" in kw and other.index.sidx.doc_perm is None:
-            raise RuntimeError("doc_sort=True built no doc-sorted layout")
-        hold_ranks(what, other, single)
-        del other
-        torch.cuda.empty_cache()
+    other = build("2-D q=2 x d=2", n_shards=2, n_query_rows=2)
+    hold_ranks("2-D q=2 x d=2", other, engine)
+    del other
+    torch.cuda.empty_cache()
+
+    def variants() -> None:
+        bm25_single = QueryEngine(db, snapshot=snap, index=engine.index, device="cuda",
+                                  model=BM25Ranker())
+        for what, kw, single in (("bm25", {"model": BM25Ranker()}, bm25_single),
+                                 ("doc-sorted", {"doc_sort": True}, engine)):
+            what += " (beside phase 16's oracle modes)"
+            other = build(what, n_shards=MESH_SHARDS, **kw)
+            if "doc_sort" in kw and other.index.sidx.doc_perm is None:
+                raise RuntimeError("doc_sort=True built no doc-sorted layout")
+            hold_ranks(what, other, single)
+            del other
+            torch.cuda.empty_cache()
+
+    out["variants"] = variants
 
     # serving: the HTTP front end over the S=4 mesh
     t0 = time.perf_counter()
@@ -967,9 +999,9 @@ def entry_phase(smi: str, phase_launches: dict) -> dict:
 
 #: phase 14: refresh cycles, each appending REFRESH_PAGES pages (no links,
 #: so no stub docs) titled with a word no other page has
-REFRESH_CYCLES = 2
+REFRESH_CYCLES = 1
 REFRESH_PAGES = 10
-REFRESH_MARKERS = ("zzrefreshalpha", "zzrefreshbravo")
+REFRESH_MARKERS = ("zzrefreshalpha",)
 REFRESH_SNIPPET = """
 import random, sys
 sys.path.insert(0, {here!r})
@@ -1099,6 +1131,7 @@ def refresh_phase(snap, queries: list[str], kw_only: list[str], smi: str,
 
     import torch
 
+    from spaghettisearch_tpu_torch.bench import corpus_root
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
     from spaghettisearch_tpu_torch.serve.server import SearchServer
     from spaghettisearch_tpu_torch.store.tables import Database
@@ -1106,7 +1139,7 @@ def refresh_phase(snap, queries: list[str], kw_only: list[str], smi: str,
     t_phase = time.perf_counter()
     root = os.path.join(HERE, "build", "smoke_refresh")
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(os.path.join(HERE, "build", "smoke_corpus"), root)
+    shutil.copytree(os.path.join(corpus_root(PAGES), "store"), root)
     eng = QueryEngine(Database(root), snapshot=snap, device="cuda")
     index_bytes = eng.index.device_bytes()
     eng.warmup()
@@ -1217,7 +1250,7 @@ def refresh_phase(snap, queries: list[str], kw_only: list[str], smi: str,
 #: time limit of each soak's wait
 SOAK_SECONDS = 60
 SOAK_SHARDED_SECONDS = 90
-SOAK_SHARDED_DOCS = 524_288
+SOAK_SHARDED_DOCS = 524_288  # the JAX soak's size: 2^19, where segregation switches on
 SOAK_TIMEOUT_S = 900
 
 
@@ -1276,6 +1309,142 @@ class Soak:
         return rep
 
 
+#: phase 16: the port's bench modes (spaghettisearch_tpu_torch/bench.py),
+#: each in a process of its own on the card, on the corpus phase 3 built;
+#: the oracle parity's sizes and the bound on each mode's seconds
+BENCH_PARITY_QUERIES = 256  # bench.py parity1m's query count
+BENCH_SPARSE_QUERIES = 16
+#: parity_rare's families in three processes at once (the oracle's host
+#: time is the phase's longest)
+BENCH_RARE_SPLIT = (("kw_catchall", "phrase_long"), ("widefold", "csr_lane", "topic_fixed"),
+                    ("big_batch",))
+BENCH_TIMEOUT_S = 900
+SCALE_SNIPPET = """
+import json, chip_smoke
+print(json.dumps(chip_smoke.scale_child()))
+"""
+
+
+def scale_child() -> dict:
+    """Phase 16's scale1m in a process of its own: bench_scale on the card,
+    and the first batch's top-10 against the same batch on the plain path
+    (the timed sweep's result, so the check launches no kernel)."""
+    import torch
+
+    from spaghettisearch_tpu_torch import bench
+
+    def check(run, batch, out):
+        with plain_kernels():
+            want = run(batch)
+        return {"top10_equal_plain": same_topk(*out, *want, rtol=1e-6, atol=0.0),
+                "ranked": int(torch.isfinite(out[0]).sum())}
+
+    return bench.run_mode(lambda: bench.bench_scale(device="cuda", check=check), True, "cuda")
+
+
+def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
+    """Phase 16 (see the module docstring); each of `beside` is called in
+    this process while the answer-gated modes run. -> each job's result."""
+    def start(name: str, mode: str, *flags: str):
+        """Start a mode; its output goes to build/bench_{name}.out and .err
+        (files, so that no pipe fills while another mode is awaited)."""
+        cmd = ([sys.executable, "-c", SCALE_SNIPPET] if mode == "scale1m" else
+               [sys.executable, "-m", "spaghettisearch_tpu_torch.bench", "--mode", mode,
+                "--seed", str(seed), *flags])
+        log = os.path.join(HERE, "build", f"bench_{name}")
+        with open(log + ".out", "wb") as out, open(log + ".err", "wb") as err:
+            proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
+                                    start_new_session=True)
+        return name, flags, time.perf_counter(), proc, log
+
+    def kill(job) -> None:
+        """End a mode's process group (serve's server with it)."""
+        import signal
+
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(job[3].pid, signal.SIGKILL)
+        job[3].wait()
+
+    def finish(job) -> dict:
+        name, flags, t0, proc, log = job
+        try:
+            proc.wait(timeout=BENCH_TIMEOUT_S)
+        finally:
+            kill(job)
+        with open(log + ".out", errors="replace") as f:
+            out = f.read()
+        if proc.returncode != 0:
+            with open(log + ".err", errors="replace") as f:
+                err = f.read()
+            raise RuntimeError(f"bench {name} {' '.join(flags)} exited {proc.returncode}:\n"
+                               f"{err[-4000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        say(f"# bench {name} {' '.join(flags)}: {json.dumps(res)} "
+            f"(ended by {time.perf_counter() - t0:.1f}s)")
+        if "launches" in res:
+            phase_launches[f"bench_{name}"] = res["launches"]
+        return res
+
+    def tie_explained(what: str, r: dict) -> None:
+        if r["order_divergences_at_50"] != r["divergences_tie_explained"]:
+            raise RuntimeError(f"{what}: a top-50 divergence from the oracle is not a tie: {r}")
+
+    # the oracle modes and scale1m at once: their gates are answers, and the
+    # oracle is host Python on cores of its own, so the card is mostly idle
+    # and this process's own checks run meanwhile; serve, the one timed
+    # gate, runs alone after them
+    pages = ("--pages", str(PAGES))
+    jobs = [start("parity", "parity", *pages, "--queries", str(BENCH_PARITY_QUERIES)),
+            *(start(f"parity_rare_{k}", "parity_rare", *pages, "--families", ",".join(fams))
+              for k, fams in enumerate(BENCH_RARE_SPLIT)),
+            start("sparse2m", "sparse2m", *pages, "--queries", str(BENCH_SPARSE_QUERIES)),
+            start("scale1m", "scale1m")]
+    try:
+        t0 = time.perf_counter()
+        for fn in beside:
+            fn()
+        say(f"# phase 16: this process's checks took {time.perf_counter() - t0:.1f}s beside "
+            "the bench modes")
+        reps = {job[0]: finish(job) for job in jobs}
+    finally:
+        for job in jobs:
+            kill(job)
+    # the parity mode's 64-query batches each hold a phrase, so it ranks on
+    # the fused lane (K2) only
+    r = reps["parity"]
+    tie_explained("parity", r)
+    if r["value"] != 1.0 or r["score_max_rel_err"] > 1e-6 or r["launches"]["K2"] == 0:
+        raise RuntimeError(f"parity: {r}")
+    fams = {name: fam for k in range(len(BENCH_RARE_SPLIT))
+            for name, fam in reps[f"parity_rare_{k}"]["families"].items()}
+    if sorted(fams) != sorted(f for split in BENCH_RARE_SPLIT for f in split):
+        raise RuntimeError(f"parity_rare: families {sorted(fams)} ran")
+    for name, fam in fams.items():
+        tie_explained(f"parity_rare {name}", fam)
+        if fam["recall_at_10"] != 1.0 or fam["score_max_rel_err"] > 1e-6:
+            raise RuntimeError(f"parity_rare {name}: {fam}")
+    if fams["kw_catchall"]["launches"]["K1"] == 0 or fams["big_batch"]["launches"]["K2"] == 0:
+        raise RuntimeError(f"parity_rare: K1 (kw_catchall) or K2 (big_batch) never launched: "
+                           f"{fams}")
+    r = reps["sparse2m"]
+    tie_explained("sparse2m", r)
+    if r["pos_dense"] or r["matcher_calls"] == 0:
+        raise RuntimeError(f"sparse2m: {r}")
+    r = reps["scale1m"]
+    if not r["check"]["top10_equal_plain"] or r["launches"]["K1"] == 0:
+        raise RuntimeError(f"scale1m: {r}")
+    say(f"# scale1m: index {r['index_device_bytes']} device bytes, max_memory_allocated "
+        f"{r['max_memory_allocated']} B, top-10 of a B=256 batch equal to the plain path ({smi})")
+    r = reps["serve"] = finish(start("serve", "serve", *pages, "--routeMix"))
+    if (r["non_200"] or not r["contract"] or not r["routes"]
+            or set(r["routes"]) != {"wordlist", "get_query", "post_query"}):
+        raise RuntimeError(f"serve --routeMix: {r}")
+    say(f"# serve --routeMix: {r['value']} req/s, p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
+        f"routes {json.dumps(r['routes'])}, mean_batch {r['mean_batch']}, spans_ms "
+        f"{json.dumps(r['spans_ms'])} ({smi})")
+    return reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="corpus and query seed")
@@ -1322,8 +1491,8 @@ def main() -> int:
     atexit.register(soak.kill)
     atexit.register(sharded.kill)
 
-    from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
-    from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
+    from spaghettisearch_tpu_torch.bench import build_bench_corpus, corpus_root, load_bench_corpus
+    from spaghettisearch_tpu_torch.corpus import bench_queries
     from spaghettisearch_tpu_torch.models.blended import BlendedRanker
     from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
     from spaghettisearch_tpu_torch.ops import scoring
@@ -1333,10 +1502,10 @@ def main() -> int:
 
     # 3. corpus + index
     t0 = time.perf_counter()
-    root = os.path.join(HERE, "build", "smoke_corpus")
+    root = corpus_root(PAGES)  # where the bench modes of phase 16 look for it
     shutil.rmtree(root, ignore_errors=True)
-    db = write_corpus(root, n_pages=PAGES, seed=args.seed, log=lambda m: say(f"# corpus: {m}"))
-    snap = build_snapshot(db)
+    build_bench_corpus(root, n_pages=PAGES, seed=args.seed, device="cuda")
+    db, snap = load_bench_corpus(root)
     t_corpus = time.perf_counter() - t0
     engine = QueryEngine(db, snapshot=snap, device="cuda")
     idx = engine.index
@@ -1437,22 +1606,27 @@ def main() -> int:
     for index in (idx, idx32):
         hold_k2(index, mbatch, "B=128 Q=4 P=16")
         hold_k2(index, mbatch16, "B=16 Q=4 P=4")
-    for kind in check.ADVERSARIAL:  # batches that stress the probe tables
-        batch = check.to_device(
-            check.adversarial_batch(idx, kind, seed=7, df=df, snap=snap, b=128), "cuda"
+
+    def adversarial() -> None:
+        """K1-K4 on the batches that stress their probe tables (phase 16
+        runs it)."""
+        for kind in check.ADVERSARIAL:
+            batch = check.to_device(
+                check.adversarial_batch(idx, kind, seed=7, df=df, snap=snap, b=128), "cuda"
+            )
+            b, q = batch["term_ids"].shape
+            hold_k1(batch, f"adversarial {kind} B={b} Q={q}")
+            hold_k2(idx, batch, f"adversarial {kind} B={b} Q={q} P=4")
+            hold_k3(batch, f"adversarial {kind} B={b} Q={q}")
+            hold_k4(batch, f"adversarial {kind} B={b} Q={q}")
+        # every_row and log_full at B=128 (above) and log_full at the
+        # serving shape give docs more phrase hits in a section than K2's
+        # log keeps: the rescan path
+        full16 = check.to_device(
+            check.adversarial_batch(idx, "log_full", seed=8, df=df, snap=snap, b=16), "cuda"
         )
-        b, q = batch["term_ids"].shape
-        hold_k1(batch, f"adversarial {kind} B={b} Q={q}")
-        hold_k2(idx, batch, f"adversarial {kind} B={b} Q={q} P=4")
-        hold_k3(batch, f"adversarial {kind} B={b} Q={q}")
-        hold_k4(batch, f"adversarial {kind} B={b} Q={q}")
-    # every_row and log_full at B=128 (above) and log_full at the serving
-    # shape give docs more phrase hits in a section than K2's log keeps:
-    # the rescan path
-    full16 = check.to_device(
-        check.adversarial_batch(idx, "log_full", seed=8, df=df, snap=snap, b=16), "cuda"
-    )
-    hold_k2(idx, full16, "adversarial log_full B=16 Q=4 P=4")
+        hold_k2(idx, full16, "adversarial log_full B=16 Q=4 P=4")
+
     for q in (4, 32):
         batch = check.to_device(check.keyword_batch(idx, 128, q, seed=q + 1, df=df, split=False),
                                 "cuda")
@@ -1568,7 +1742,7 @@ def main() -> int:
     n_hyd = engine.prewarm_hydration()
     engine.prewarm_wordlist()
     say(f"# warmup + hydration prewarm ({n_hyd} records) in {time.perf_counter() - t0:.1f}s")
-    queries = make_queries(snap, db, QUERIES, seed=args.seed + 1)
+    queries = bench_queries(snap, QUERIES, seed=args.seed + 1, phrase_every=4, db=db)
     kw_only = [q for q in queries if '"' not in q][:32]
     prefixes = ["w0", "w00", "w001", "w12", "w2", "zz"]
     reset_launches()
@@ -1709,9 +1883,15 @@ def main() -> int:
     t0 = time.perf_counter()
     with open(go, "w"):
         pass
-    sharded.finish(1, smi, " (its load and refreshes alone, after phase 14)")
+    rep = sharded.finish(1, smi, " (its load and refreshes alone, after phase 14)")
+    if rep.get("segregation") != "active":
+        raise RuntimeError(f"soak_sharded: phrase-class segregation was not on at "
+                           f"{SOAK_SHARDED_DOCS} docs: {rep}")
     say(f"# soak_sharded: {time.perf_counter() - t0:.1f}s from its start file to its end")
     lap("15 the sharded soak's load")
+    # 16. the port's bench modes, each in a process of its own
+    bench_phase(smi, phase_launches, args.seed, beside=(adversarial, mesh["variants"]))
+    lap("16 bench")
     say(f"# launches per path: {json.dumps(phase_launches)}")
     say(f"# phase seconds: {json.dumps(phase_s)}")
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")

@@ -144,7 +144,7 @@ def serve(db, snap, idx, bursts: int = 1, n: int = 320, clients: int = 8) -> lis
     (host clock), K1 and K2 launches, and the batcher's batch count."""
     import importlib.util
 
-    from spaghettisearch_tpu_torch.corpus import make_queries
+    from spaghettisearch_tpu_torch.corpus import bench_queries
     from spaghettisearch_tpu_torch.ops.kernels import membership, mixed
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
     from spaghettisearch_tpu_torch.serve.server import SearchServer
@@ -159,7 +159,7 @@ def serve(db, snap, idx, bursts: int = 1, n: int = 320, clients: int = 8) -> lis
     server = SearchServer(engine, batching=True)
     host, port = server.start_background(port=0)
     base = f"http://{host}:{port}"
-    queries = make_queries(snap, db, n + 64, seed=1)
+    queries = bench_queries(snap, n + 64, seed=1, phrase_every=4, db=db)
     runs = []
     try:
         smoke.send_jobs(base, [("post", q) for q in queries[n:]], clients)

@@ -58,7 +58,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: CUDA is not available", file=sys.stderr)
         return 2
-    from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
+    from spaghettisearch_tpu_torch.corpus import bench_queries, write_corpus
     from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
     from spaghettisearch_tpu_torch.serve.server import SearchServer
@@ -76,7 +76,7 @@ def main() -> int:
     engine.warmup()
     engine.prewarm_hydration()
     engine.prewarm_wordlist()
-    queries = make_queries(snap, db, 1280, seed=1)
+    queries = bench_queries(snap, 1280, seed=1, phrase_every=4, db=db)
     kw = [parse_query(q) for q in queries if '"' not in q]
     mixed = [parse_query(q) for q in queries]
     out = {"device": smi, "docs": snap.n_docs}

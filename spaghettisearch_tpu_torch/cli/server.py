@@ -29,6 +29,10 @@ from ..serve.server import SearchServer
 _NOT_PORTED = "{} is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 
+#: the start-up line that says whether phrase-class segregation is on
+SEGREGATION_LINE = "Phrase-class segregation: "
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="SpaghettiSearch server (PyTorch/CUDA)")
     ap.add_argument("--db", default="./db_data")
@@ -148,6 +152,13 @@ def main(argv: list[str] | None = None) -> None:
         from ..utils.timing import TRACER
 
         TRACER.reset()  # /stats should reflect live traffic, not warmup
+    if not args.noBatching:
+        # whether the micro-batcher cuts phrase-class batches apart ("auto"
+        # asks the engine: large fused indexes only)
+        active = args.phraseSegregate == "on" or (
+            args.phraseSegregate == "auto" and engine.class_batching_pays())
+        print(f"{SEGREGATION_LINE}{'active' if active else 'inactive'} "
+              f"({args.phraseSegregate}, {engine.index.n_docs} docs)", flush=True)
     print(f"\nServer is running on port {args.port}")
     SearchServer(
         engine, batching=not args.noBatching, result_cache=args.resultCache,

@@ -27,7 +27,9 @@ warm pass are ready, until PATH exists: a caller can set the soak up while
 it does other work, and then run the load and the refreshes on their own.
 
 The last line is a JSON object {"counts", "errors", "n_errors", "p50_s",
-"p99_s", "docs_final"}; any error exits 1. The server's log is
+"p99_s", "docs_final", "segregation"}; "segregation" is the server's
+start-up word for phrase-class batch segregation ("active" from 2^19 docs
+on a fused index). Any error exits 1. The server's log is
 ROOT.server.log.
 """
 
@@ -180,6 +182,17 @@ def _post(port: int, path: str, payload: dict, timeout: float):
         return json.load(resp)
 
 
+def server_segregation(log_path: str) -> str | None:
+    """"active" or "inactive", as the server's start-up line says."""
+    from .server import SEGREGATION_LINE
+
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if line.startswith(SEGREGATION_LINE):
+                return line[len(SEGREGATION_LINE):].split()[0]
+    return None
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seconds", type=float, default=180.0)
@@ -220,6 +233,7 @@ def main(argv: list[str] | None = None) -> None:
     try:
         wait_for_server(proc, log_path, 3000, 5)
         print("server up", flush=True)
+        segregation = server_segregation(log_path)
 
         errors: list[str] = []
         counts = {"queries": 0, "wordlists": 0, "refreshes": 0}
@@ -351,6 +365,7 @@ def main(argv: list[str] | None = None) -> None:
             "p50_s": round(p50, 3) if p50 else None,
             "p99_s": round(p99, 3) if p99 else None,
             "docs_final": base,
+            "segregation": segregation,
         }), flush=True)
         if errors:
             sys.exit(1)

@@ -19,6 +19,10 @@ reference model, on `device`) and the term weighting pass
 included: a link's text is a body word of the linking page and a title
 posting of its target at the -100 sentinel position.
 
+`bench_queries` is bench.py's query mix over a built corpus (df-weighted
+keywords, a 2-gram mined from a cached page in every `phrase_every`-th
+query).
+
 The small fixture corpus of the JAX package's tests (tests/corpus.py) is
 here too, so that the port's graft entry points, soaks and tests need no
 file of the JAX package: `VOCAB`, `make_page` and `build_corpus_db` draw
@@ -131,25 +135,38 @@ def write_corpus(
     return db
 
 
-def make_queries(snap, db, n_queries: int, seed: int = 1) -> list[str]:
+def bench_queries(snap, n_queries: int, seed: int = 1, phrase_every: int = 4,
+                  db=None) -> list[str]:
     """The benchmark query mix (bench.py bench_queries): 1-4 keywords drawn
-    proportional to body df, and every 4th query led by an
-    adjacent 2-gram mined from a random page's visible body text (so
-    phrases actually match)."""
+    proportional to body df, and every `phrase_every`-th query led by an
+    adjacent 2-gram mined from a random cached page body (so phrases
+    actually match). Without `db` the keywords are word hashes and no
+    phrase is mined."""
     rng = np.random.default_rng(seed)
     df = (snap.body.post_offsets[1:] - snap.body.post_offsets[:-1]).astype(np.float64)
     p = df / df.sum()
     words = snap.word_hashes
+    word_of = None
+    if db is not None:
+        word_of = {wh: db.word.get(wh) for wh in words}
     out = []
+    n_words = len(words)
     for i in range(n_queries):
         k = int(rng.integers(1, 5))
-        ids = rng.choice(len(words), size=k, p=p)
-        terms = [w for w in (db.word.get(words[int(wid)]) for wid in ids) if w]
+        ids = rng.choice(n_words, size=k, p=p)
+        terms = []
+        for wid in ids:
+            w = word_of[words[int(wid)]] if word_of else words[int(wid)]
+            if w:
+                terms.append(w)
         q = " ".join(terms) if terms else "w00100"
-        if i % 4 == 0:
+        if phrase_every and i % phrase_every == 0 and db is not None:
             for _ in range(3):
                 doc = snap.doc_hashes[int(rng.integers(0, snap.n_docs))]
-                body = (db.doc_summary.get(doc) or "").split()
+                raw = db.cached_doc(doc)
+                if not raw:
+                    continue
+                body = raw.decode().split("<p>", 1)[-1].split("</p>", 1)[0].split()
                 if len(body) >= 2:
                     j = int(rng.integers(0, len(body) - 1))
                     q = f'"{body[j]} {body[j + 1]}" ' + q

@@ -17,7 +17,7 @@ from spaghettisearch_tpu.index.snapshot import build_snapshot as jax_build_snaps
 from spaghettisearch_tpu.models.blended import BlendedRanker as JaxBlended
 from spaghettisearch_tpu.retrieval.engine import QueryEngine as JaxEngine
 from spaghettisearch_tpu.retrieval.engine import parse_query as jax_parse
-from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
+from spaghettisearch_tpu_torch.corpus import bench_queries, write_corpus
 from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
 from spaghettisearch_tpu_torch.models.blended import BlendedRanker
 from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
@@ -80,7 +80,7 @@ def test_engine_top50_matches_jax(crawl_db, bench_db, which, doc_sort):
     assert eng.index.pos_dense and eng.model.supports_mixed(eng.index)
     if which == "bench":
         assert eng.index.hot_body_map is not None  # the hot split is exercised
-        queries = make_queries(eng.snapshot, db, 16, seed=doc_sort)
+        queries = bench_queries(eng.snapshot, 16, seed=doc_sort, phrase_every=4, db=db)
     else:
         queries = CRAWL_QUERIES
     _check_rank(jax_eng, eng, queries)  # one mixed batch
@@ -107,7 +107,7 @@ def test_corpus_writer_snapshots_and_engines_agree(bench_db):
     row = bench_db.inv_body.get(a.word_hashes[0])
     vals = next(iter(row.values()))
     assert vals[1:] == sorted(vals[1:]) and vals[0] > 0
-    queries = make_queries(b, bench_db, 16, seed=9)
+    queries = bench_queries(b, 16, seed=9, phrase_every=4, db=bench_db)
     assert sum('"' in q for q in queries) == 4
     _check_rank(JaxEngine(bench_db, snapshot=a), QueryEngine(bench_db, snapshot=b, device="cpu"), queries)
 

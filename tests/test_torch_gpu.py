@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
+from spaghettisearch_tpu_torch.corpus import bench_queries, write_corpus
 from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
 from spaghettisearch_tpu_torch.models.blended import BlendedRanker
 from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
@@ -329,7 +329,7 @@ def test_engine_on_cuda_matches_cpu(cuda, corpus):
     eng_gpu = QueryEngine(db, snapshot=snap, device=cuda)
     eng_cpu = QueryEngine(db, snapshot=snap, device="cpu")
     assert eng_gpu.index.doc_perm is None and eng_gpu.index.pos_dense
-    queries = make_queries(snap, db, 64, seed=3)
+    queries = bench_queries(snap, 64, seed=3, phrase_every=4, db=db)
     parsed = [parse_query(q) for q in queries]
     k1.reset_launches()
     k2.reset_launches()
@@ -365,7 +365,7 @@ def test_bm25_engine_on_cuda_matches_cpu(cuda, corpus):
     db, snap = corpus
     eng_gpu = QueryEngine(db, snapshot=snap, device=cuda, model=BM25Ranker())
     eng_cpu = QueryEngine(db, snapshot=snap, device="cpu", model=BM25Ranker())
-    queries = make_queries(snap, db, 64, seed=5)
+    queries = bench_queries(snap, 64, seed=5, phrase_every=4, db=db)
     parsed = [parse_query(q) for q in queries]
     k1.reset_launches()
     k2.reset_launches()
@@ -379,7 +379,7 @@ def test_custom_blend_and_csr_on_cuda_match_cpu(cuda, corpus, monkeypatch):
     """A custom blend ranks on K3 (phrases on the sparse lane); an index
     truncated by a lowered DOC_TERM_CAP ranks through the CSR route."""
     db, snap = corpus
-    queries = make_queries(snap, db, 64, seed=6)
+    queries = bench_queries(snap, 64, seed=6, phrase_every=4, db=db)
     parsed = [parse_query(q) for q in queries]
     model = BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0)
     k1.reset_launches()
@@ -485,7 +485,7 @@ def test_crawl_cli_on_cuda(cuda, tmp_path):
                                    [want[k][c] for c in sorted(want[k])], rtol=1e-5, atol=1e-9)
     snap = load_snapshot(str(tmp_path / "snap"))
     eng = QueryEngine(db, snapshot=snap, device=cuda, use_topic_model=True)
-    queries = make_queries(snap, db, 16, seed=1)
+    queries = bench_queries(snap, 16, seed=1, phrase_every=4, db=db)
     _engines_agree(eng, QueryEngine(db, snapshot=snap, device="cpu", use_topic_model=True),
                    [parse_query(q) for q in queries], queries)
     db.close()
@@ -507,7 +507,7 @@ def test_sharded_engine_on_cuda_matches_cpu(cuda, corpus, n_shards, n_rows):
     eng_gpu = ShardedQueryEngine(db, devices=[cuda] * n_dev, **kw)
     eng_cpu = ShardedQueryEngine(db, device="cpu", **kw)
     assert all(sh.device.type == "cuda" for row in eng_gpu.index.sidx.rows for sh in row)
-    queries = make_queries(snap, db, 64, seed=7)
+    queries = bench_queries(snap, 64, seed=7, phrase_every=4, db=db)
     parsed = [parse_query(q) for q in queries]
     assert eng_gpu._use_mixed(eng_gpu.index.sidx, parsed)
     k1.reset_launches()
@@ -602,7 +602,7 @@ def test_engine_refresh_on_cuda(cuda, tmp_path):
     eng.refresh()
     assert eng.index.n_docs == n0 + 10 and eng.index.title.fwd.ftT.device.type == "cuda"
     assert sorted(r["Url"] for r in eng.query("zzmarkerone")) == sorted(urls)
-    queries = make_queries(eng.snapshot, eng.db, 48, seed=4)
+    queries = bench_queries(eng.snapshot, 48, seed=4, phrase_every=4, db=eng.db)
     parsed = [parse_query(q) for q in queries]
     k2.reset_launches()
     _engines_agree(eng, QueryEngine(eng.db, snapshot=eng.snapshot, device="cpu"), parsed, queries)

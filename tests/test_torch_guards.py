@@ -27,7 +27,8 @@ _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
     class _Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu",
+                                      "tests", "bench", "oracle", "corpus", "test_sharded_build"):
                 raise ImportError(f"blocked: {name}")
             return None
     sys.meta_path.insert(0, _Block())
@@ -42,8 +43,11 @@ def _port_modules() -> list[str]:
     )
 
 
-#: top-level names the port and chip_smoke.py never import
-_FORBIDDEN = ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu")
+#: top-level names the port and chip_smoke.py never import: the JAX stack,
+#: the JAX package, and the repo's bench.py and test modules (tests/ is on
+#: sys.path in the JAX package's tests)
+_FORBIDDEN = ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu",
+              "tests", "bench", "oracle", "corpus", "test_sharded_build")
 
 
 def test_port_imports_without_jax_or_lxml():
@@ -65,6 +69,32 @@ def test_port_imports_without_jax_or_lxml():
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
         assert not bad, bad
+        print("clean")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr[-3000:]
+
+
+def test_bench_and_oracle_run_without_jax(tmp_path):
+    """The port's bench builds its corpus and runs its oracle parity (which
+    imports oracle.py at call time) with jax, lxml, aiohttp, the JAX
+    package, bench.py and the test modules blocked."""
+    code = _BLOCKER + textwrap.dedent(f"""
+        import torch
+        torch.set_num_threads(1)
+        from spaghettisearch_tpu_torch import bench
+        bench.BENCH_DIR = {str(tmp_path)!r}
+        bench.build_bench_corpus(bench.corpus_root(80), n_pages=80, device="cpu", quiet=True)
+        res = bench.bench_parity(80, 8, "cpu")
+        assert res["value"] == 1.0 and res["queries"] == 8, res
+        bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
+        assert not bad, bad
+        tests_dir = {os.path.join(REPO, "tests")!r}
+        assert not [m for m in sys.modules.values()
+                    if (getattr(m, "__file__", None) or "").startswith(tests_dir)]
         print("clean")
     """)
     out = subprocess.run(
@@ -183,7 +213,10 @@ COPIES = {
     "serve/fastloop.py": (),
     "serve/server.py": (),
     "serve/static/index.html": (),
+    "oracle.py": (),
 }
+#: copies whose original lives outside the JAX package
+ORIGINS = {"oracle.py": "tests/oracle.py"}
 
 
 def _is_import(line: str) -> bool:
@@ -197,7 +230,8 @@ def _strip_imports(src: str) -> list[str]:
 
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_copied_module_matches_original(rel):
-    orig = open(os.path.join(REPO, "spaghettisearch_tpu", rel), encoding="utf-8").read()
+    orig_path = ORIGINS.get(rel, os.path.join("spaghettisearch_tpu", rel))
+    orig = open(os.path.join(REPO, orig_path), encoding="utf-8").read()
     copy = open(os.path.join(REPO, "spaghettisearch_tpu_torch", rel), encoding="utf-8").read()
     for a, b in COPIES[rel]:
         assert copy.count(b) == 1

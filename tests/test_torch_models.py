@@ -21,7 +21,7 @@ from spaghettisearch_tpu.models.bm25 import BM25Ranker as JaxBM25
 from spaghettisearch_tpu.models.bm25 import bm25_posting_weights as jax_bm25_weights
 from spaghettisearch_tpu.retrieval import device_index as jdi
 from spaghettisearch_tpu.retrieval.engine import QueryEngine as JaxEngine
-from spaghettisearch_tpu_torch.corpus import make_queries, write_corpus
+from spaghettisearch_tpu_torch.corpus import bench_queries, write_corpus
 from spaghettisearch_tpu_torch.models.blended import BlendedRanker
 from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker, bm25_posting_weights
 from spaghettisearch_tpu_torch.ops import scoring
@@ -46,7 +46,7 @@ def bench_db():
 def _queries(which, db, snap):
     if which == "crawl":
         return CRAWL_QUERIES
-    return make_queries(snap, db, 16, seed=2)
+    return bench_queries(snap, 16, seed=2, phrase_every=4, db=db)
 
 
 def _spy(monkeypatch, cls, name):

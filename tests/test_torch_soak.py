@@ -93,6 +93,7 @@ def test_soak_sharded_refreshes_under_load(tmp_path, corpus):
     assert rep["counts"]["refreshes"] >= 1 and rep["counts"]["queries"] > 0
     assert rep["p50_s"] is not None and rep["p99_s"] >= rep["p50_s"]
     assert rep["docs_final"] == (1024 if corpus else 2048) + 2000
+    assert rep["segregation"] == "inactive"  # below 2^19 docs
     if corpus:
         db = Database(src)  # the copied store is left as it was
         assert len(db.doc_info) == 1024
