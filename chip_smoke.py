@@ -5,9 +5,10 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: name, count, `nvidia-smi` name and power limit;
-  2. build: `make -C native` and the three CUDA sources of csrc/
-     (membership.cu: K1 + K3, mixed.cu: K2, fused.cu: K4), all at once
-     (nvcc for sm_90a; ptxas registers / shared memory / spills printed);
+  2. build: `make -C native` and the five CUDA sources of csrc/
+     (membership.cu: K1 + K3, mixed.cu: K2, fused.cu: K4, fused_topk.cu:
+     K5, phrase_delta.cu: K6), all at once (nvcc for sm_90a; ptxas
+     registers / shared memory / spills printed);
   3. corpus: the seeded benchmark corpus built by the port's bench
      (bench.py build_bench_corpus: corpus.py's pages through the indexer,
      PageRank on the card, term weights) into build/bench/corpus100k, its
@@ -29,7 +30,12 @@ Phases (any failure raises and the script exits non-zero):
      and a seeded C=8 blend; each kernel's bound from this run's data
      (bound_ms) and, for K1 and K3, the time of torch.sparse.mm per
      section, the library call computing the same function, held first
-     against the plain version; per B=128 batch, score_queries_fused vs
+     against the plain version; K5 (fused top-k) at B=256, Q=4, k_pad=16
+     and K6 (phrase delta) on the first 16 rows of the B=128, P=16 mixed
+     batch and on all 128, int16 and f32 planes, with and without the
+     flag, each against its plain version and timed with it (the
+     probes' shapes; their launches come from phase 17); per B=128
+     batch, score_queries_fused vs
      the production keyword scorer, and one custom-blend rank (two K3
      calls, phrase fold, finalize, top-k);
   5. serving: the port's SearchServer (micro-batching on) after warmup()
@@ -126,9 +132,21 @@ Phases (any failure raises and the script exits non-zero):
      bytes and the memory_allocated peak) and sparse2m's body at 100k (no
      position planes with the posT budget at 0, the sparse lane's matcher
      ran, every divergence from the oracle tie-explained). These run at
-     once, with phase 4's adversarial batches and phase 12's BM25 and
-     doc-sorted meshes in this process meanwhile (the oracle is host
-     Python, so the card is mostly idle); serve runs alone after them.
+     once, with phase 4's adversarial batches, phase 12's BM25 and
+     doc-sorted meshes and phase 17 in this process meanwhile (the oracle
+     is host Python, so the card is mostly idle); serve runs alone after
+     them.
+ 17. the probes of experiments/ on the card (inside phase 16's window):
+     K5 against its plain version on batches that stress a streaming
+     top-k (no hit, fewer hits than k_pad, 20 equal finals across doc
+     tiles so the k-th cut falls in a tie, a duplicated term, B=45 and 77
+     against 32-row tiles) and on check.ADVERSARIAL; K6 and its table
+     build on check.ADVERSARIAL's phrases; and the four probe scripts
+     (torch_fused2_probe, torch_phrase_delta_probe at 100k,
+     torch_tbound_probe, torch_membership_tune), started with phase 16's
+     modes, each in a process of its own, each required to pass its
+     original's exactness check; the fused2 and phrase-delta probes' K5
+     and K6 launches are those kernels' launches on their paths.
 The wall seconds of each phase are printed before the kernels' line.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
@@ -223,17 +241,22 @@ def count_matcher_calls():
 
 
 def reset_launches() -> None:
-    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import (
+        fused, fused_topk, membership, mixed, phrase_delta,
+    )
 
-    for mod in (membership, mixed, fused):
+    for mod in (membership, mixed, fused, fused_topk, phrase_delta):
         mod.reset_launches()
 
 
 def launches() -> dict:
-    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import (
+        fused, fused_topk, membership, mixed, phrase_delta,
+    )
 
     return {"membership": membership.LAUNCHES, "mixed": mixed.LAUNCHES,
-            "membership_1sec": membership.LAUNCHES_1SEC, "fused": fused.LAUNCHES}
+            "membership_1sec": membership.LAUNCHES_1SEC, "fused": fused.LAUNCHES,
+            "fused_topk": fused_topk.LAUNCHES, "phrase_delta": phrase_delta.LAUNCHES}
 
 
 def same_results(got: list[dict], want: list[dict], rtol: float = 1e-6) -> bool:
@@ -380,13 +403,6 @@ def latency_line(results: dict, n: int, wall: float) -> str:
             f"req/s; latency p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms")
 
 
-#: the H100 SXM's data-sheet rates at 700 W: memory bytes/s, and float32
-#: operations/s outside the tensor cores (the rate the probe's integer and
-#: f32 work is held to)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-
-
 def row_terms(batch: dict, section: str, phrases: bool = False) -> list[set]:
     """Per row, the distinct query terms a section's sweep matches: the
     keyword columns below the row's active count (qnb for the body under
@@ -403,28 +419,23 @@ def row_terms(batch: dict, section: str, phrases: bool = False) -> list[set]:
     return rows
 
 
-def bound_ms(index, sweeps: list, b: int, n_out: int, extra_bytes: int = 0) -> tuple[float, str]:
-    """The least time the card could take for a membership call at batch b
-    on this run's data: the larger of its bytes over the memory rate and
-    its operations over the peak rate. `sweeps` holds (ftT, row_terms) per
-    section swept. Bytes: the term id (4 B) of every real slot, the weight
-    (4 B) of each slot whose term some row asks for, each of the n_out f32
-    [b, D] outputs written once, and extra_bytes. Operations: one
-    membership test per real slot, one multiply-add (2) per (slot, row)
-    match. -> (ms, "bytes" or "operations")."""
+def phrase_rows(batch: dict, rows: int, n_words: int) -> dict:
+    """The first `rows` rows of a mixed batch with their keyword columns
+    emptied: what K6 reads (row_terms of it, with phrases, are the rows'
+    phrase terms alone)."""
     import torch
 
-    slots = hits = pairs = 0
-    for ftT, rows in sweeps:
-        real = ftT[ftT >= 0].long()
-        slots += real.numel()
-        occ = torch.bincount(real, minlength=index.n_words + 1).cpu().numpy()
-        hits += int(occ[sorted(set().union(*rows))].sum())
-        pairs += sum(int(occ[sorted(r)].sum()) for r in rows)
-    nbytes = 4 * slots + 4 * hits + n_out * b * index.n_docs_padded * 4 + extra_bytes
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * (slots + 2 * pairs) / PEAK_OPS_PER_S
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    dev = batch["ph_ids"].device
+    return {"term_ids": torch.full((rows, 1), n_words, dtype=torch.int32, device=dev),
+            "qn": torch.zeros(rows, dtype=torch.int32, device=dev), "split": False,
+            "ph_ids": batch["ph_ids"][:rows], "ph_valid": batch["ph_valid"][:rows]}
+
+
+def bound_ms(index, sweeps: list, b: int, n_out: int, extra_bytes: int = 0) -> tuple[float, str]:
+    """check.bound_ms for a call at batch b on this index's [T, D] tiles."""
+    from spaghettisearch_tpu_torch.ops.kernels import check
+
+    return check.bound_ms(sweeps, index.n_words, b, index.n_docs_padded, n_out, extra_bytes)
 
 
 def library_calls(idx, n_words: int, batch: dict, want: list,
@@ -540,19 +551,24 @@ def pagerank_bound_ms(n: int, e: int, c: int, n_vectors: int) -> float:
     pointer), the [C, E] gather of float32 contributions, and n_vectors
     float32 [C, N] vectors (read or written), each once; the per-node
     out-degree weights (4 B each) too."""
+    from spaghettisearch_tpu_torch.ops.kernels.check import HBM_BYTES_PER_S
+
     nbytes = 4 * e + 4 * (n + 1) + 4 * c * e + 4 * n_vectors * c * n + 4 * n
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def build_all() -> list:
     """`make -C native` and one nvcc per CUDA source, all started together."""
-    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import (
+        fused, fused_topk, membership, mixed, phrase_delta,
+    )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(6) as ex:
         native = ex.submit(subprocess.run, ["make", "-C", os.path.join(HERE, "native"), "-s"],
                            check=True)
-        libs = [ex.submit(mod.library) for mod in (membership, mixed, fused)]
+        libs = [ex.submit(mod.library)
+                for mod in (membership, mixed, fused, fused_topk, phrase_delta)]
         native.result()
         built = [f.result() for f in libs]
     say(f"# native libraries and kernels built in {time.perf_counter() - t0:.1f}s")
@@ -1445,6 +1461,71 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
     return reps
 
 
+#: phase 17: the probes of experiments/ ported to the card, each in a
+#: process of its own beside phase 16's oracle modes, at their originals'
+#: sizes, except phrase_delta: its original's crawl-built 1M corpus takes
+#: ~46 minutes to build, so it runs on phase 3's 100k corpus
+PROBES = (("fused2", "torch_fused2_probe.py", ()),
+          ("phrase_delta", "torch_phrase_delta_probe.py", (str(PAGES),)),
+          ("tbound", "torch_tbound_probe.py", ()),
+          ("membership_tune", "torch_membership_tune.py", ()))
+PROBE_TIMEOUT_S = 600
+#: K6's phrase-row budget in the split program (phrase_delta_probe.py bp)
+BP_DELTA = 16
+
+
+class Probes:
+    """Phase 17's probe scripts: started together, each its own process
+    (its main() prints its lines and, last, its JSON; it exits 1 when its
+    exactness check fails), output in build/probe_{name}.out and .err."""
+
+    def __init__(self, seed: int) -> None:
+        self.jobs = []
+        for name, script, argv in PROBES:
+            log = os.path.join(HERE, "build", f"probe_{name}")
+            cmd = [sys.executable, os.path.join(HERE, "experiments", script), *argv]
+            if name == "phrase_delta":
+                cmd += ["--seed", str(seed)]
+            with open(log + ".out", "wb") as out, open(log + ".err", "wb") as err:
+                proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
+                                        start_new_session=True)
+            self.jobs.append((name, proc, log, time.perf_counter()))
+
+    def kill(self) -> None:
+        import signal
+
+        for _, proc, _, _ in self.jobs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    def finish(self, smi: str) -> dict:
+        """Wait for every probe; raise unless each exited 0 with its check
+        held. -> {name: its JSON}."""
+        out = {}
+        try:
+            for name, proc, log, t0 in self.jobs:
+                proc.wait(timeout=PROBE_TIMEOUT_S)
+                with open(log + ".out", errors="replace") as f:
+                    lines = f.read().strip().splitlines()
+                if proc.returncode != 0 or not lines:
+                    with open(log + ".err", errors="replace") as f:
+                        err = f.read()
+                    raise RuntimeError(f"probe {name} exited {proc.returncode}:\n"
+                                       f"{chr(10).join(lines[-20:])}\n{err[-4000:]}")
+                res = json.loads(lines[-1])
+                for line in lines[:-1]:
+                    say(f"# probe {name}: {line}")
+                say(f"# probe {name} (ended by {time.perf_counter() - t0:.1f}s, {smi}): "
+                    f"{json.dumps(res)}")
+                if not res["ok"]:
+                    raise RuntimeError(f"probe {name}: its exactness check failed: {res}")
+                out[name] = res
+        finally:
+            self.kill()
+        return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="corpus and query seed")
@@ -1496,7 +1577,7 @@ def main() -> int:
     from spaghettisearch_tpu_torch.models.blended import BlendedRanker
     from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
     from spaghettisearch_tpu_torch.ops import scoring
-    from spaghettisearch_tpu_torch.ops.kernels import check, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import check, mixed, phrase_delta, probe
     from spaghettisearch_tpu_torch.retrieval import device_index
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
 
@@ -1537,7 +1618,8 @@ def main() -> int:
     # 4. kernels vs plain versions on the card
     t0 = time.perf_counter()
     df = snap.body.df(range(snap.n_words)).astype("float64")
-    records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": []}
+    records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": [],
+               "fused_topk": [], "phrase_delta": []}
     main_counts = idx.has_zero_weight  # the engine's emit_counts
     doc_sort = idx.body.tmax_blocks is not None
     idx32 = dataclasses.replace(idx, **{  # the f32 planes a pathological corpus keeps
@@ -1652,6 +1734,35 @@ def main() -> int:
         check.time_ms(lambda: check.run_k2(idx, mbatch16, main_counts, plain=True), iters=3,
                       warmup=1),
     )
+    # K5 at the fused2 probe's shape (B=256, Q=4, k_pad=16, every column
+    # read, query_len = the row's term count) and K6 at the phrase-delta
+    # probe's (the first 16 rows of the B=128, P=16 mixed batch, phrase
+    # rows first; and all 128, tiles without a phrase row included)
+    k5_batch = check.to_device(
+        check.keyword_batch(idx, 256, 4, seed=256, df=df, split=False), "cuda"
+    )
+    k5_args = check.k5_inputs(idx, k5_batch)
+    held("fused_topk", check.compare_topk(check.run_k5(k5_args), check.run_k5(k5_args, plain=True)),
+         "K5 B=256 Q=4 k_pad=16")
+    for index in (idx, idx32):
+        for rows in (BP_DELTA, None):
+            for flag in (False, True):
+                held("phrase_delta",
+                     check.compare_delta(check.run_k6(index, mbatch, flag, rows),
+                                         check.run_k6(index, mbatch, flag, rows, plain=True)),
+                     f"K6 bp={rows or 128} flag={flag} planes={index.body.posT.dtype}")
+    times["fused_topk"] = (
+        check.time_ms(lambda: check.run_k5(k5_args)),
+        check.time_ms(lambda: check.run_k5(k5_args, plain=True), iters=3, warmup=1),
+    )
+    times["phrase_delta"] = (
+        check.time_ms(lambda: check.run_k6(idx, mbatch, False, BP_DELTA)),
+        check.time_ms(lambda: check.run_k6(idx, mbatch, False, BP_DELTA, plain=True), iters=3,
+                      warmup=1),
+    )
+    k6_full = check.time_ms(lambda: check.run_k6(idx, mbatch, False))
+    say(f"# K6 at bp=128 (the rows past the phrase rows' tile skip): {k6_full:.4f} ms per call "
+        f"({smi})")
     variants = {}  # K3 and K4 per variant at B=128, Q=4, qn-sorted rows
     for section in ("title", "body"):
         for emit in (True, False):
@@ -1686,6 +1797,8 @@ def main() -> int:
         "membership_1sec": check.time_ms(lambda: [torch.sparse.mm(w, m) for w, m in lib_k3]),
         "mixed": None,  # no single call: phrase chains over position planes
         "fused": None,  # no single call: membership, cosine normalisation and blend in one
+        "fused_topk": None,  # no single call: membership, normalisation and a top-k in one
+        "phrase_delta": None,  # no single call: phrase chains over position planes
     }
     secs = ("title", "body")
     n_k = 4 if main_counts else 2
@@ -1698,6 +1811,12 @@ def main() -> int:
         "mixed": bound_ms(idx, sweeps(mbatch, phrases=True), 128, n_k),
         "membership_1sec": bound_ms(idx, sweeps(cbatch, ("body",)), 128, 2),
         "fused": bound_ms(idx, sweeps(cbatch), 128, 1, extra_bytes=4 * idx.n_docs_padded * 3),
+        # K5: no [B, D] output; the two magnitudes and [B, 16] values and ids
+        "fused_topk": bound_ms(idx, sweeps(k5_batch), 256, 0,
+                               extra_bytes=2 * 4 * idx.n_docs_padded + 256 * 16 * 8),
+        # K6: the phrase rows' terms only; add_t and add_b written once
+        "phrase_delta": bound_ms(idx, sweeps(phrase_rows(mbatch, BP_DELTA, snap.n_words),
+                                             phrases=True), BP_DELTA, 2),
     }
     k2_b16_bound = bound_ms(idx, sweeps(mbatch16, phrases=True), 16, n_k)
     say(f"# bounds (ms, what sets them; 4 B per real slot, 4 B per slot a row asks for, "
@@ -1890,8 +2009,49 @@ def main() -> int:
     say(f"# soak_sharded: {time.perf_counter() - t0:.1f}s from its start file to its end")
     lap("15 the sharded soak's load")
     # 16. the port's bench modes, each in a process of its own
-    bench_phase(smi, phase_launches, args.seed, beside=(adversarial, mesh["variants"]))
+    probes = Probes(args.seed)
+    atexit.register(probes.kill)
+    probe_s = [0.0]
+
+    def probes_phase() -> None:
+        """Phase 17 (inside phase 16's window, after this process's other
+        checks): K5 and K6 against their plain versions on the batches
+        that stress them, then the probe processes' own checks."""
+        t0 = time.perf_counter()
+        for b in (45, 77):  # ragged row tiles of 32
+            k5_case = check.topk_case(idx, b, seed=b, df=df)
+            rep = check.compare_topk(check.run_k5(k5_case), check.run_k5(k5_case, plain=True))
+            held("fused_topk", rep, f"K5 adversarial B={b} (no hit, fewer than 16 hits, "
+                 "20 equal finals across doc tiles, a duplicated term)")
+        for kind in check.ADVERSARIAL:
+            batch = check.to_device(
+                check.adversarial_batch(idx, kind, seed=7, df=df, snap=snap, b=128), "cuda"
+            )
+            k5_in = check.k5_inputs(idx, batch)
+            held("fused_topk", check.compare_topk(check.run_k5(k5_in), check.run_k5(k5_in, plain=True)),
+                 f"K5 adversarial {kind}")
+            pad = phrase_delta.pad_column(batch["ph_ids"].shape[0], "cuda")
+            tabs = [fn(pad, None, None, batch["ph_ids"], batch["ph_valid"], sections=1)
+                    for fn in (probe.cuda_tables, probe.plain_tables)]
+            if not (tabs[0][2] == tabs[1][2] and all(
+                    torch.equal(tabs[0][i], tabs[1][i]) for i in (0, 1, 3))):
+                raise RuntimeError(f"K6's tables of adversarial {kind} differ from their plain build")
+            held("phrase_delta", check.compare_delta(check.run_k6(idx, batch, True),
+                                                     check.run_k6(idx, batch, True, plain=True)),
+                 f"K6 adversarial {kind} flag=True (tables equal to the plain build)")
+        t1 = time.perf_counter()
+        res = probes.finish(smi)
+        phase_launches["probe_fused2"] = {"fused_topk": res["fused2"]["launches"]["K5"]}
+        phase_launches["probe_phrase_delta"] = {
+            "phrase_delta": res["phrase_delta"]["launches"]["K6"]}
+        probe_s[0] = time.perf_counter() - t0
+        say(f"# phase 17: K5/K6 holds {t1 - t0:.1f}s, then {time.perf_counter() - t1:.1f}s "
+            f"waiting for the probe processes")
+
+    bench_phase(smi, phase_launches, args.seed,
+                beside=(adversarial, mesh["variants"], probes_phase))
     lap("16 bench")
+    phase_s["17 probes (inside 16)"] = round(probe_s[0], 1)
     say(f"# launches per path: {json.dumps(phase_launches)}")
     say(f"# phase seconds: {json.dumps(phase_s)}")
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
@@ -1907,6 +2067,9 @@ def main() -> int:
         ("membership_shard", "membership.cu", "spaghettisearch_tpu/ops/kernels/membership.py:274",
          "mesh_serving"),
         ("mixed_shard", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514", "mesh_serving"),
+        ("fused_topk", "fused_topk.cu", "experiments/fused2_probe.py:126", "probe_fused2"),
+        ("phrase_delta", "phrase_delta.cu", "experiments/phrase_delta_probe.py:114",
+         "probe_phrase_delta"),
     ):
         n = phase_launches[path][kname.removesuffix("_shard")]
         if n == 0:

@@ -24,7 +24,10 @@ device index as the engine does, and measures on the card:
     clients through the checkout's HTTP front end (req/s, latency p50/p99,
     launches, batches per burst).
 Prints one JSON line. To compare two commits, run it in one chip call for
-both, in turns (parent, change, change, parent), on the same --db.
+both, in turns (parent, change, change, parent), on the same --db; with
+--outputs FILE the first run saves every case's outputs and the later ones
+report whether theirs are bit-identical (a kernel refactor that must not
+change a result).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--serve", action="store_true", help="also time a serving burst")
     ap.add_argument("--bursts", type=int, default=1, help="measured serving bursts")
+    ap.add_argument("--outputs", default="", help="save each case's outputs here, or, when "
+                    "the file exists, compare them with the saved ones bit for bit")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -115,8 +120,12 @@ def main() -> int:
                               lambda got, want: check.compare_final(got[0], want[0])),
     }
     out = {"label": args.label, "device": smi, "setup_s": setup_s, "cases": {}}
+    saved = torch.load(args.outputs) if args.outputs and os.path.exists(args.outputs) else None
+    outputs = {}
     for name, (run, kname, compare) in cases.items():
-        rep = compare(run(), run(plain=True))
+        got = run()
+        outputs[name] = [x.cpu() for x in got if isinstance(x, torch.Tensor)]
+        rep = compare(got, run(plain=True))
         ms = check.time_ms(run, iters=50, warmup=5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -130,6 +139,11 @@ def main() -> int:
             "table_build_device_ms": dev_us["build_tables_kernel"] / 1e3 / 20,
             "ok": rep["ok"], "max_abs_err": rep["max_abs_err"],
         }
+        if saved is not None and name in saved:
+            out["cases"][name]["bit_identical"] = len(saved[name]) == len(outputs[name]) and all(
+                torch.equal(a, b) for a, b in zip(saved[name], outputs[name]))
+    if args.outputs and saved is None:
+        torch.save(outputs, args.outputs)
     if args.serve:
         out["serving"] = serve(db, snap, idx, args.bursts)
     print(json.dumps(out), flush=True)

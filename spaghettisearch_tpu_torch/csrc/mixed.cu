@@ -27,7 +27,8 @@
 // keyword terms, as entries flagged with (row, phrase position p); a term
 // at two positions of a row has two entries. The sweep adds keyword hits
 // to the row sums and logs each phrase hit (entry, slot) in a per-thread
-// log in shared memory. After the sweep, each logged hit of a row's
+// log in shared memory. After the sweep, the phrase stage (csrc/phrase.cuh,
+// shared with K6, phrase_delta.cu) runs: each logged hit of a row's
 // position 0 starts that row's check: the row's other positions are looked
 // up in the log, and only when every valid position was found are the
 // positions read for the chain and the weights summed (in phrase order, as
@@ -44,178 +45,9 @@
 // block of 64 rows with counts elided: 32 KB of sums, the 4 KB filter, the
 // table (8 B an entry: 10 KB at Q=4, P=16), the 8 KB log, 1.25 KB of
 // flags: 4 blocks per SM.
-#include "probe.cuh"
+#include "phrase.cuh"
 
 namespace ss {
-
-constexpr int kPMax = 16;  // engine P_LEVELS[-1]
-constexpr int kCMax = 32;  // device_index POS_T_C_MAX
-constexpr int kOkWords = probe::kRowsMax / 32;
-constexpr int kLog = 16;  // phrase hits a thread logs per section
-// Words of the per-thread log region: the log, or a rescan's slots.
-constexpr int kLogWords = kLog > kPMax / 2 ? kLog : kPMax / 2;
-constexpr float kPosRealMax = 8388608.0f;  // 2^23 (mixed.py POS_REAL_MAX)
-constexpr float kPosBig = 16777216.0f;     // 2^24 (mixed.py POS_BIG)
-
-__device__ __forceinline__ float load_pos(const void* posT, bool pos16,
-                                          size_t i) {
-  if (pos16) {
-    const float x = (float)__ldg(static_cast<const int16_t*>(posT) + i);
-    return x >= 32767.0f ? kPosBig : x;
-  }
-  return __ldg(static_cast<const float*>(posT) + i);
-}
-
-// Where a check finds the slot at which this doc holds phrase position p
-// of row k (-1: absent). From the sweep's log of phrase hits:
-struct LogSlots {
-  const uint32_t* log;  // this thread's column
-  int n;
-  const int* s_pay;
-  int k;
-  __device__ int operator()(int p) const {
-    for (int i = 0; i < n; ++i) {
-      const uint32_t v = log[i * probe::kDocs];
-      const int q = s_pay[v >> 16];
-      if ((q >> 16) == k && (q & 0x7fff) == p) return (int)(v & 0xffffu);
-    }
-    return -1;
-  }
-};
-
-// From a rescan of the doc's slots (after the log overflowed): two 16-bit
-// slots a word, in this thread's column of the log region.
-struct ArraySlots {
-  uint32_t* col;
-  __device__ int operator()(int p) const {
-    const uint32_t w = col[(p >> 1) * probe::kDocs];
-    return (int)(short)(p & 1 ? w >> 16 : w & 0xffffu);
-  }
-  __device__ void clear() const {
-    for (int i = 0; i < kPMax / 2; ++i) col[i * probe::kDocs] = 0xffffffffu;
-  }
-  __device__ void set(int p, int j) const {
-    uint32_t* w = col + (p >> 1) * probe::kDocs;
-    *w = p & 1 ? (*w & 0xffffu) | ((uint32_t)j << 16) : (*w & 0xffff0000u) | (uint32_t)j;
-  }
-};
-
-// The positional chain of one (row, doc, section) whose every required
-// position p is at slot_of(p): some real position a of the term at p = 0
-// such that each other required term occurs at a + p.
-template <class Slots>
-__device__ inline bool chain_holds(const void* posT, bool pos16, int T, int C,
-                                   int D, int d, const Slots& slot_of, int req) {
-  float anc[kCMax];
-  uint32_t hit = 0;
-  const size_t s0 = (size_t)slot_of(0);
-#pragma unroll
-  for (int c = 0; c < kCMax; ++c) {
-    anc[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + s0) * D + d) : kPosBig;
-    if (anc[c] < kPosRealMax) hit |= 1u << c;
-  }
-  for (int m = req & ~1; m != 0 && hit != 0; m &= m - 1) {
-    const int p = __ffs(m) - 1;
-    const size_t sp = (size_t)slot_of(p);
-    float pos[kCMax];
-#pragma unroll
-    for (int c = 0; c < kCMax; ++c)
-      pos[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + sp) * D + d)
-                     : __int_as_float(0x7fffffff);  // NaN: equals nothing
-    const float fp = (float)p;
-    uint32_t found = 0;
-#pragma unroll
-    for (int c0 = 0; c0 < kCMax; ++c0) {
-      const float target = anc[c0] + fp;
-      bool m0 = false;
-#pragma unroll
-      for (int c = 0; c < kCMax; ++c) m0 |= (pos[c] == target);
-      found |= (uint32_t)m0 << c0;
-    }
-    hit &= found;
-  }
-  return hit != 0;
-}
-
-// Per-section inputs of the phrase stage.
-struct Section {
-  const int* ftT;
-  const float* fwT;
-  const void* posT;
-  bool pos16;
-  int T;
-  int C;
-  int bound;
-};
-
-// Check row k of this thread's doc in one section and fold a match into
-// the row's sums.
-template <bool kCounts, class Slots>
-__device__ inline void fold_match(const Section& sec, bool title, int k,
-                                  int req, int D, int d, int r0,
-                                  const Slots& slot_of, uint32_t* okbits,
-                                  float* acc_s, float* acc_c, float* tc) {
-  using probe::kDocs;
-  for (int m = req; m != 0; m &= m - 1)
-    if (slot_of(__ffs(m) - 1) < 0) return;  // a term is absent
-  if (!chain_holds(sec.posT, sec.pos16, sec.T, sec.C, D, d, slot_of, req)) return;
-  float sum = 0.f;
-  for (int m = req; m != 0; m &= m - 1)
-    sum += __ldg(sec.fwT + (size_t)slot_of(__ffs(m) - 1) * D + d);
-  acc_s[k * kDocs] += sum;
-  uint32_t* ok = okbits + (k >> 5) * kDocs;
-  const uint32_t bit = 1u << (k & 31);
-  if (title) {
-    if (kCounts) acc_c[k * kDocs] += 1.f;
-    *ok |= bit;
-  } else if (kCounts && !(*ok & bit)) {
-    tc[(size_t)(r0 + k) * D + d] += 1.f;  // stored by this thread already
-  }
-}
-
-// The phrase stage of one section for this thread's doc, after its sweep.
-// A rescan after an overflow keeps its slots where the log was.
-template <bool kCounts>
-__device__ inline void phrase_stage(const Section& sec, bool title, int D,
-                                    int d, int r0, int R, const int* s_term,
-                                    const int* s_pay, const uint32_t* s_filter,
-                                    int n,
-                                    const int* s_req,
-                                    const probe::PhraseLog& plog,
-                                    uint32_t* okbits, float* acc_s,
-                                    float* acc_c, float* tc) {
-  using namespace probe;
-  if (!plog.overflow) {
-    for (int i = 0; i < plog.n; ++i) {
-      const int q = s_pay[plog.log[i * kDocs] >> 16];
-      if ((q & 0x7fff) != 0) continue;  // position 0 starts a row's check
-      const int k = q >> 16;
-      const int req = s_req[k];
-      if (req & 1)
-        fold_match<kCounts>(sec, title, k, req, D, d, r0,
-                            LogSlots{plog.log, plog.n, s_pay, k}, okbits, acc_s,
-                            acc_c, tc);
-    }
-    return;
-  }
-  const ArraySlots slots{plog.log};
-  for (int k = 0; k < R; ++k) {  // the log overflowed: rescan per phrase row
-    const int req = s_req[k];
-    if (!(req & 1)) continue;
-    slots.clear();
-    for (int j = 0; j < sec.bound; ++j) {
-      const int f = __ldg(sec.ftT + (size_t)j * D + d);
-      if (f < 0) break;
-      if (!filter_test(s_filter, f)) continue;
-      for (int e = lower_bound(s_term, n, f); e < n && s_term[e] == f; ++e) {
-        const int q = s_pay[e];
-        if ((q & kPhraseFlag) && (q >> 16) == k) slots.set(q & 0x7fff, j);
-      }
-    }
-    fold_match<kCounts>(sec, title, k, req, D, d, r0, slots, okbits, acc_s,
-                        acc_c, tc);
-  }
-}
 
 template <bool kCounts>
 __global__ void __launch_bounds__(probe::kDocs)

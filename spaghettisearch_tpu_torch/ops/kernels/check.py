@@ -13,13 +13,20 @@ import numpy as np
 import torch
 
 from . import fused as k4
+from . import fused_topk as k5
 from . import membership as k1
 from . import mixed as k2
+from . import phrase_delta as k6
 from . import probe
 
 #: the bar the JAX package holds its kernels to against their twins
 #: (tests/test_scoring_paths.py: rtol=1e-6); counts and masks are exact
 RTOL = 1e-6
+#: the H100 SXM's data-sheet rates at 700 W: memory bytes/s, and float32
+#: operations/s outside the tensor cores (the rate the probe's integer and
+#: f32 work is held to)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def keyword_batch(index, b: int, q: int, seed: int, df=None, split: bool = True) -> dict:
@@ -328,6 +335,82 @@ def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False):
     )
 
 
+def topk_case(index, b: int, seed: int, df=None, copies: int = 20) -> tuple:
+    """K5's adversarial case on a device index. Copies of the forward
+    columns and magnitudes in which two new term ids are planted in a
+    doc's first body slot (its weight kept): TIE in one doc whose columns
+    are then copied over `copies` docs spread along the doc axis (their
+    finals tie across doc tiles, more of them than a k_pad of 16: the
+    k-th cut falls inside the tie), FEW in 3 other docs. A [b, 4] batch
+    whose rows are: no hit (unknown words), FEW (fewer hits than k_pad),
+    TIE, a duplicated term, then df-weighted rows of 1-4 terms
+    (unknown-word pads). Pick b not a multiple of fused_topk.ROWS for a
+    ragged row tile. -> (title_ftT, title_fwT, body_ftT, body_fwT,
+    mag_title, mag_body, term_ids, query_len), on the index's device."""
+    rng = np.random.default_rng(seed)
+    dev = index.title.fwd.ftT.device
+    n_words, n_docs = index.n_words, index.n_docs
+    tie, few = n_words + 1, n_words + 2
+    arrs = [index.title.fwd.ftT.clone(), index.title.fwd.fwT.clone(), index.body.fwd.ftT.clone(),
+            index.body.fwd.fwT.clone(), index.mag_title.clone(), index.mag_body.clone()]
+    docs = torch.nonzero(arrs[2][0, :n_docs] >= 0).flatten().cpu().numpy()
+    src, *few_docs = (int(d) for d in rng.choice(docs, 4, replace=False))
+    arrs[2][0, src] = tie
+    targets = np.linspace(0, n_docs - 1, copies).astype(np.int64)
+    targets = torch.from_numpy(targets[~np.isin(targets, [src, *few_docs])]).to(dev)
+    for a in arrs[:4]:
+        a[:, targets] = a[:, src : src + 1].clone()
+    for a in arrs[4:]:
+        a[targets] = a[src].clone()
+    arrs[2][0, few_docs] = few
+    p = None if df is None else df / df.sum()
+    tq = np.full((b, 4), n_words, np.int32)
+    for i in range(b):
+        n = int(rng.integers(1, 5))
+        tq[i, :n] = rng.choice(n_words, size=n, p=p)
+    tq[0] = n_words
+    tq[1] = [few, n_words, n_words, n_words]
+    tq[2] = [tie, n_words, n_words, n_words]
+    tq[3, :2] = tq[3, 0]
+    qlen = (tq < n_words).sum(1).clip(min=1).astype(np.float32)
+    return (*arrs, torch.from_numpy(tq).to(dev), torch.from_numpy(qlen).to(dev))
+
+
+def run_k5(args: tuple, k_pad: int = 16, plain: bool = False):
+    """K5's wrapper (or its plain version) -> (values, ids) [B, k_pad]."""
+    fn = k5.plain_fused_topk if plain else k5.fused_topk
+    return fn(*args, k_pad)
+
+
+def k5_inputs(index, batch: dict) -> tuple:
+    """K5's arguments for a to_device() keyword batch (all Q columns, as
+    the prototype reads them; query_len = the row's term count)."""
+    return (index.title.fwd.ftT, index.title.fwd.fwT, index.body.fwd.ftT, index.body.fwd.fwT,
+            index.mag_title, index.mag_body, batch["term_ids"],
+            batch["qn"].clamp(min=1).to(torch.float32))
+
+
+def run_k6(index, batch: dict, emit_flag: bool, rows: int | None = None, plain: bool = False):
+    """K6's wrapper (or its plain version) on the first `rows` rows (all
+    by default) of a to_device() mixed batch."""
+    sl = slice(None, rows)
+    fn = k6.plain_phrase_delta if plain else k6.phrase_delta
+    return fn(index.title.fwd.ftT, index.title.fwd.fwT, index.body.fwd.ftT, index.body.fwd.fwT,
+              index.title.posT, index.body.posT, batch["ph_ids"][sl].contiguous(),
+              batch["ph_valid"][sl].contiguous(), batch["pn"][sl].contiguous(),
+              emit_flag=emit_flag)
+
+
+def compare_delta(got, want) -> dict:
+    """K6's (add_t, add_b, flag | None): adds within RTOL, the flag and
+    the matched set exact. -> a report like compare()'s."""
+    rep = compare((got[0], got[2], got[1], None if got[2] is None else torch.zeros_like(got[1])),
+                  (want[0], want[2], want[1],
+                   None if want[2] is None else torch.zeros_like(want[1])))
+    rep["matched"] = int(((want[0] > 0) | (want[1] > 0)).sum())
+    return rep
+
+
 def compare(got, want) -> dict:
     """Scores within RTOL; counts and candidacy masks exact. -> a report
     with max_abs_err / max_rel_err over the score outputs and `ok`."""
@@ -394,3 +477,77 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(sweeps: list, n_words: int, b: int, d: int, n_out: int,
+             extra_bytes: int = 0) -> tuple[float, str]:
+    """The least time the card could take for a membership call at batch b
+    over D docs on this data: the larger of its bytes over the memory rate
+    and its operations over the peak rate. `sweeps` holds (ftT, rows) per
+    section swept, rows a set of term ids per query row. Bytes: the term
+    id (4 B) of every real slot, the weight (4 B) of each slot whose term
+    some row asks for, each of the n_out f32 [b, D] outputs written once,
+    and extra_bytes. Operations: one membership test per real slot, one
+    multiply-add (2) per (slot, row) match. -> (ms, "bytes" or
+    "operations")."""
+    slots = hits = pairs = 0
+    for ftT, rows in sweeps:
+        real = ftT[ftT >= 0].long()
+        slots += real.numel()
+        occ = torch.bincount(real, minlength=n_words + 1).cpu().numpy()
+        hits += int(occ[sorted(set().union(*rows))].sum())
+        pairs += sum(int(occ[sorted(r)].sum()) for r in rows)
+    nbytes = 4 * slots + 4 * hits + n_out * b * d * 4 + extra_bytes
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * (slots + 2 * pairs) / PEAK_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_on(fn, device, iters: int = 20, warmup: int = 3) -> float:
+    """time_ms on a CUDA device; on the CPU the mean host time of fn() in
+    ms (the experiments' --device cpu runs)."""
+    if torch.device(device).type == "cuda":
+        return time_ms(fn, iters, warmup)
+    import time
+
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def probe_device(name: str):
+    """The torch.device an experiment's --device names; CUDA that is not
+    there exits with a message (no fallback to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: CUDA is not available (pass --device cpu)")
+    if dev.type == "cuda":
+        from ..scoring import set_exact_matmul
+
+        set_exact_matmul()
+    return dev
+
+
+def compare_topk(got, want, rtol: float = RTOL, atol: float = 1e-6) -> dict:
+    """[B, K] top-k (values, ids) against the reference's: the -inf slots
+    exact, every other value within rtol/atol position by position, and
+    the ids equal wherever a doc ranks, except where the reference's own
+    value at that slot ties the got id's (a tie within the tolerance,
+    ordered differently by a different summation order). -> a report with
+    max_abs_err over the finite slots, id_diffs and `ok`."""
+    gv, gi, wv, wi = (x.cpu() for x in (*got, *want))
+    ranked = wv > -float("inf")
+    ok = bool(torch.equal(gv > -float("inf"), ranked))
+    ok &= bool(torch.isclose(gv, wv, rtol=rtol, atol=atol).all())
+    both = torch.isfinite(gv) & torch.isfinite(wv)
+    max_abs = float((gv - wv).abs()[both].max()) if bool(both.any()) else 0.0
+    diff = ranked & (gi != wi)
+    for b, k in diff.nonzero().tolist():
+        row = (wi[b] == gi[b, k]).nonzero()
+        ref = float(wv[b, row[0, 0]]) if len(row) else float(wv[b, -1])
+        ok &= abs(ref - float(wv[b, k])) <= atol + rtol * abs(float(wv[b, k]))
+    return {"ok": ok, "max_abs_err": max_abs, "id_diffs": int(diff.sum()),
+            "ranked": int(ranked.sum())}

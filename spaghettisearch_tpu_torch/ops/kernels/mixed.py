@@ -139,18 +139,50 @@ def plain_mixed_scores(
     phrase candidacy flag."""
     from ..scoring import mask_cold
 
-    tpos_all = deq_posT(title_posT)
-    bpos_all = deq_posT(body_posT)
     ts, tc = plain_section_scores(title_ftT, title_fwT, term_ids, n_blocks)
     bs, bc = plain_section_scores(body_ftT, body_fwT, mask_cold(term_ids, qnb), n_blocks)
+    add_t, add_b, flag = plain_phrase_delta(
+        title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
+        ph_ids, ph_valid, emit_flag=True, n_blocks=n_blocks,
+    )
+    return ts + add_t, tc + flag, bs + add_b, bc
 
+
+def plain_phrase_delta(
+    title_ftT, title_fwT, body_ftT, body_fwT,  # [T, D]
+    title_posT, body_posT,  # [C*T, D] f32 or int16
+    ph_ids,  # int32 [B, P]
+    ph_valid,  # f32 [B, P]
+    pn=None,  # int32 [B] active phrase slots: not needed (see below)
+    *,
+    emit_flag: bool = False,
+    n_blocks: int = 16,
+):
+    """The phrase half of the mixed lane alone (K6's plain version) ->
+    (add_t, add_b, flag | None), each f32 [B, D]: a section's add is the
+    sum of the row's valid phrase-term weights there where the section
+    holds every valid term and the chain holds, else 0; flag is 1 where
+    either section matched. Valid slots are read from ph_valid (pn, which
+    counts them, only narrows the kernels' work)."""
+    tpos_all = deq_posT(title_posT)
+    bpos_all = deq_posT(body_posT)
     tt, d = title_ftT.shape
     tb = body_ftT.shape[0]
     ct = tpos_all.shape[0] // tt
     cb = bpos_all.shape[0] // tb
-    b, p = ph_ids.shape
+    dev = title_ftT.device
+    add_t = torch.zeros((ph_ids.shape[0], d), dtype=torch.float32, device=dev)
+    add_b = torch.zeros_like(add_t)
+    flag = torch.zeros_like(add_t) if emit_flag else None
+    # only rows whose slot 0 is valid hold a phrase, and slots past the last
+    # valid one of every row constrain nothing: both cuts are exact
     valid = ph_valid > 0.0  # [B, P]
-    hp = valid[:, 0]  # [B]
+    rows = valid[:, 0].nonzero().flatten()
+    if rows.numel() == 0:
+        return add_t, add_b, flag
+    p = int(valid.any(0).nonzero().max()) + 1
+    ph_ids, valid = ph_ids[rows, :p], valid[rows, :p]
+    b = rows.numel()
     db = max(-(-d // n_blocks), 1)
 
     def term(ft, fw, pos, pid):  # ft/fw [T, Db], pos [C, T, Db], pid [B]
@@ -167,10 +199,10 @@ def plain_mixed_scores(
         bft, bfw = body_ftT[:, d0:d1], body_fwT[:, d0:d1]
         tpos = tpos_all[:, d0:d1].reshape(ct, tt, n)
         bpos = bpos_all[:, d0:d1].reshape(cb, tb, n)
-        present = torch.ones((b, n), dtype=torch.bool, device=tft.device)
+        present = torch.ones((b, n), dtype=torch.bool, device=dev)
         t_all = present.clone()
         b_all = present.clone()
-        sum_tw = torch.zeros((b, n), dtype=torch.float32, device=tft.device)
+        sum_tw = torch.zeros((b, n), dtype=torch.float32, device=dev)
         sum_bw = torch.zeros_like(sum_tw)
         anchor_t = anchor_b = hit_t = hit_b = None
         for pi in range(p):
@@ -194,14 +226,13 @@ def plain_mixed_scores(
                 m_b = (bsel[:, :, None, :] == anchor_b[:, :, :, None] + fp).any(-1)
                 hit_t &= m_t | ~v[..., None]
                 hit_b &= m_b | ~v[..., None]
-        chain_t = hit_t.any(-1)
-        chain_b = hit_b.any(-1)
-        t_ok = present & t_all & chain_t & hp[:, None]
-        b_ok = present & b_all & chain_b & hp[:, None]
-        ts[:, d0:d1] += torch.where(t_ok, sum_tw, 0.0)
-        bs[:, d0:d1] += torch.where(b_ok, sum_bw, 0.0)
-        tc[:, d0:d1] += (t_ok | b_ok).float()
-    return ts, tc, bs, bc
+        t_ok = present & t_all & hit_t.any(-1)
+        b_ok = present & b_all & hit_b.any(-1)
+        add_t[rows, d0:d1] = torch.where(t_ok, sum_tw, 0.0)
+        add_b[rows, d0:d1] = torch.where(b_ok, sum_bw, 0.0)
+        if emit_flag:
+            flag[rows, d0:d1] = (t_ok | b_ok).float()
+    return add_t, add_b, flag
 
 
 # --------------------------------------------------------------------- #

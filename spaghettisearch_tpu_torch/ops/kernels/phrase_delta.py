@@ -1,0 +1,144 @@
+"""K6: the phrase rows' additive contributions alone (the phrase delta).
+
+The counterpart of experiments/phrase_delta_probe.py pallas_phrase_delta,
+the TPU prototype that splits the mixed lane into the phrase stage alone
+plus the keyword kernel (K1). For one batch of phrase rows:
+
+    add_t[b, d] = sum of row b's valid phrase-term title weights where the
+                  title holds every valid term and the positional chain
+                  holds (mixed.py's semantics), else 0
+    add_b[b, d] = the same for the body
+    flag[b, d]  = 1 where either section matched (emit_flag)
+
+so K1's keyword scores plus (add_t, add_b), with the flag as candidacy,
+are what K2 computes for those rows.
+
+`phrase_delta` is the wrapper: on CUDA tensors it launches the hand-written
+kernel (csrc/phrase_delta.cu: a probe table of the phrase entries per row
+tile, then K2's sweep and phrase stage, csrc/phrase.cuh) or raises; on CPU
+tensors it runs mixed.plain_phrase_delta, the plain PyTorch version (the
+phrase half of plain_mixed_scores), which is also the on-card reference.
+The position planes are int16 (quantize_posT) or f32, as K2 takes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import probe
+from .membership import _check, _int32
+from .mixed import C_MAX, P_MAX, plain_phrase_delta
+
+#: launches of the CUDA kernel since the last reset
+LAUNCHES = 0
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # title ftT, fwT, Tt
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # body ftT, fwT, Tb
+    ctypes.c_int,  # D
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # title posT, Ct, int16?
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # body posT, Cb, int16?
+    ctypes.c_void_p, ctypes.c_int,  # all-pad keyword column [B, 1], B
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # add_t, add_b, flag
+    ctypes.c_void_p,  # stream
+]
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def library():
+    """The built K6 library (compiled on first use)."""
+    from ._build import load_library
+
+    built = load_library("phrase_delta")
+    fn = built.lib.ss_phrase_delta
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return built
+
+
+def pad_column(b: int, device) -> torch.Tensor:
+    """The [b, 1] keyword column K6's table build reads: all TERM_PAD, so
+    its tables hold the phrase entries only (probe.cuda_tables /
+    plain_tables with this column, sections=1, are K6's tables)."""
+    return torch.full((b, 1), probe.TERM_PAD, dtype=torch.int32, device=device)
+
+
+def phrase_delta(
+    title_ftT, title_fwT, body_ftT, body_fwT,  # [T, D] int32 / f32
+    title_posT, body_posT,  # [C*T, D] int16 (quantize_posT) or f32
+    ph_ids,  # int32 [B, P] (sentinel pad)
+    ph_valid,  # f32 [B, P] 1/0
+    pn,  # int32 [B] active phrase slots (0: no phrase)
+    emit_flag: bool = False,
+):
+    """-> (add_t, add_b, flag | None), each f32 [B, D]. pn must count each
+    row's valid slots (they come first); the kernel reads them from
+    ph_valid, and a row tile with no phrase row stores zeros without a
+    sweep. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if ph_ids.device.type == "cpu":
+        return plain_phrase_delta(
+            title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
+            ph_ids, ph_valid, pn, emit_flag=emit_flag,
+        )
+    if ph_ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {ph_ids.device}")
+    dev = ph_ids.device
+    tt, d = title_ftT.shape
+    tb = body_ftT.shape[0]
+    b, p = ph_ids.shape
+    for t, name, dt in (
+        (title_ftT, "title_ftT", torch.int32), (title_fwT, "title_fwT", torch.float32),
+        (body_ftT, "body_ftT", torch.int32), (body_fwT, "body_fwT", torch.float32),
+        (ph_ids, "ph_ids", torch.int32), (ph_valid, "ph_valid", torch.float32),
+        (title_posT, "title_posT", title_posT.dtype), (body_posT, "body_posT", body_posT.dtype),
+    ):
+        _check(t, name, dt, 2, dev)
+    for pos, name, tsec in ((title_posT, "title_posT", tt), (body_posT, "body_posT", tb)):
+        if pos.dtype not in (torch.int16, torch.float32):
+            raise ValueError(f"{name}: int16 or float32 planes, got {pos.dtype}")
+        if pos.shape[1] != d or pos.shape[0] % tsec or not 1 <= pos.shape[0] // tsec <= C_MAX:
+            raise ValueError(f"{name} {tuple(pos.shape)} vs T={tsec}, D={d}")
+    if title_fwT.shape != (tt, d) or body_fwT.shape != (tb, d) or body_ftT.shape[1] != d:
+        raise ValueError("forward tiles disagree on [T, D]")
+    if not 1 <= p <= P_MAX or ph_valid.shape != (b, p):
+        raise ValueError(f"P={p} outside the kernel's limits")
+    if max(tt, tb) > 0x7FFF:
+        raise ValueError(f"T={max(tt, tb)} past the kernel's slot log (32767)")
+    _int32(pn, "pn", b, dev)
+    rows = probe.row_tile(b)
+    n = rows * (1 + p)
+    tables = probe.scratch(b, rows, n, dev, sections=1)
+    tq_pad = pad_column(b, dev)
+    add_t = torch.empty((b, d), dtype=torch.float32, device=dev)
+    add_b = torch.empty_like(add_t)
+    flag = torch.empty_like(add_t) if emit_flag else None
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ss_phrase_delta(
+            title_ftT.data_ptr(), title_fwT.data_ptr(), tt,
+            body_ftT.data_ptr(), body_fwT.data_ptr(), tb, d,
+            title_posT.data_ptr(), title_posT.shape[0] // tt,
+            int(title_posT.dtype == torch.int16),
+            body_posT.data_ptr(), body_posT.shape[0] // tb,
+            int(body_posT.dtype == torch.int16),
+            tq_pad.data_ptr(), b, ph_ids.data_ptr(), ph_valid.data_ptr(), p,
+            tables.data_ptr(), rows, n,
+            add_t.data_ptr(), add_b.data_ptr(), None if flag is None else flag.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"phrase-delta kernel launch failed (cudaError {err})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return add_t, add_b, flag

@@ -1,8 +1,8 @@
-"""GPU tests of the PyTorch port: each hand-written CUDA kernel (K1-K4)
+"""GPU tests of the PyTorch port: each hand-written CUDA kernel (K1-K6)
 against its plain PyTorch version on the card, at small and at the main
-path's full widths (B=128, Q=4/32, P=16), all four also on the batches
-that stress their probe tables (and each table build against its plain
-version), and the CUDA engine against the CPU engine on the reference
+path's full widths (B=128, Q=4/32, P=16), all also on the batches that
+stress their probe tables (and each table build against its plain
+version), K5's top-k on ties across doc tiles and ragged row tiles, and the CUDA engine against the CPU engine on the reference
 blend, BM25, a custom blend and the CSR route; the doc-sharded mesh with
 its shards on the card against the same mesh on the CPU; refresh on the
 card (appended docs, and the device memory an old index must give back);
@@ -30,8 +30,10 @@ from spaghettisearch_tpu_torch.models.blended import BlendedRanker
 from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
 from spaghettisearch_tpu_torch.ops.kernels import check
 from spaghettisearch_tpu_torch.ops.kernels import fused as k4
+from spaghettisearch_tpu_torch.ops.kernels import fused_topk as k5
 from spaghettisearch_tpu_torch.ops.kernels import membership as k1
 from spaghettisearch_tpu_torch.ops.kernels import mixed as k2
+from spaghettisearch_tpu_torch.ops.kernels import phrase_delta as k6
 from spaghettisearch_tpu_torch.ops.kernels import probe
 from spaghettisearch_tpu_torch.retrieval import device_index as tdi
 from spaghettisearch_tpu_torch.retrieval.device_index import DeviceIndex
@@ -308,6 +310,127 @@ def test_wrappers_reject_bad_inputs(cuda, indexes):
             0.33, 0.38, 0.29, 100.0, tables.data_ptr(), rows, rows * q, out.data_ptr(), stream,
         )
         assert err != 0, (cc, q)
+
+
+@pytest.mark.parametrize("doc_sort", [False, True])
+@pytest.mark.parametrize("b,q", [(13, 4), (45, 4), (128, 4), (256, 4), (128, 32)])
+def test_fused_topk_kernel_matches_plain(cuda, corpus, indexes, doc_sort, b, q):
+    idx = indexes[doc_sort]
+    batch = check.to_device(
+        check.keyword_batch(idx, b, q, seed=b + q, df=_df(corpus[1]), split=False), cuda
+    )
+    args = check.k5_inputs(idx, batch)
+    n0 = k5.LAUNCHES
+    got = check.run_k5(args)
+    assert k5.LAUNCHES == n0 + 1
+    rep = check.compare_topk(got, check.run_k5(args, plain=True))
+    assert rep["ok"], rep
+    assert rep["ranked"] > 0
+
+
+@pytest.mark.parametrize("k_pad", [1, 16, 32])
+@pytest.mark.parametrize("b", [16, 45, 77])
+def test_fused_topk_kernel_adversarial(cuda, corpus, indexes, b, k_pad):
+    """No-hit rows, rows with fewer hits than k_pad, 20 equal finals across
+    the doc tiles (the k-th cut inside the tie), a duplicated term, B not a
+    multiple of the row tile."""
+    idx = indexes[False]
+    args = check.topk_case(idx, b, seed=b, df=_df(corpus[1]))
+    got = check.run_k5(args, k_pad)
+    want = check.run_k5(args, k_pad, plain=True)
+    rep = check.compare_topk(got, want)
+    assert rep["ok"], rep
+    assert not bool((want[0][0] > -float("inf")).any())  # no hit
+    assert bool((want[0][1] == -float("inf")).any()) or k_pad == 1  # fewer than k_pad
+    tie = want[0][2][want[0][2] > -float("inf")]
+    assert len(tie) >= min(k_pad, 17) and bool((tie == tie[0]).all())  # a tie at the cut
+    assert torch.equal(got[0][2], want[0][2]) and torch.equal(got[1][2], want[1][2])
+
+
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_fused_topk_kernel_on_probe_adversarial_batches(cuda, corpus, indexes, kind):
+    idx = indexes[True]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=7, df=_df(corpus[1]), snap=corpus[1], b=128),
+        cuda,
+    )
+    args = check.k5_inputs(idx, batch)
+    rep = check.compare_topk(check.run_k5(args), check.run_k5(args, plain=True))
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("pos16", [True, False])
+@pytest.mark.parametrize("emit_flag", [True, False])
+@pytest.mark.parametrize("b,rows", [(16, None), (128, 16), (128, None)])
+def test_phrase_delta_kernel_matches_plain(cuda, corpus, indexes, pos16, emit_flag, b, rows):
+    idx = indexes[True]
+    if not pos16:
+        idx = dataclasses.replace(idx, **{
+            s: dataclasses.replace(getattr(idx, s), posT=k2.deq_posT(getattr(idx, s).posT).contiguous())
+            for s in ("title", "body")
+        })
+    batch = check.to_device(
+        check.mixed_batch(idx, b, 4, 16, seed=b + 1, df=_df(corpus[1]), snap=corpus[1]), cuda
+    )
+    n0 = k6.LAUNCHES
+    got = check.run_k6(idx, batch, emit_flag, rows)
+    assert k6.LAUNCHES == n0 + 1
+    rep = check.compare_delta(got, check.run_k6(idx, batch, emit_flag, rows, plain=True))
+    assert rep["ok"], rep
+    assert rep["matched"] > 0
+
+
+@pytest.mark.parametrize("kind", check.ADVERSARIAL)
+def test_phrase_delta_kernel_adversarial(cuda, corpus, indexes, kind):
+    """The phrase halves of the probe-table batches (P=4: repeated phrase
+    terms, invalid slots, the log's overflow and rescan, ragged tiles),
+    with the flag, and K6's table build against its plain version."""
+    idx = indexes[False]
+    batch = check.to_device(
+        check.adversarial_batch(idx, kind, seed=7, df=_df(corpus[1]), snap=corpus[1], b=128),
+        cuda,
+    )
+    rep = check.compare_delta(check.run_k6(idx, batch, True),
+                              check.run_k6(idx, batch, True, plain=True))
+    assert rep["ok"], rep
+    pad = k6.pad_column(batch["ph_ids"].shape[0], cuda)
+    got = probe.cuda_tables(pad, None, None, batch["ph_ids"], batch["ph_valid"], sections=1)
+    want = probe.plain_tables(pad, None, None, batch["ph_ids"], batch["ph_valid"], sections=1)
+    assert got[2] == want[2]
+    assert all(torch.equal(g, w) for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])))
+
+
+def test_phrase_delta_plus_keywords_is_the_mixed_kernel(cuda, corpus, indexes):
+    """K1's scores plus K6's adds (the flag in the title count) equal K2's
+    on the card, exactly: the two kernels share phrase.cuh."""
+    idx = indexes[True]
+    batch = check.to_device(
+        check.mixed_batch(idx, 128, 4, 16, seed=5, df=_df(corpus[1]), snap=corpus[1]), cuda
+    )
+    mixed = check.run_k2(idx, batch, True)
+    kw = check.run_k1(idx, batch, True, body_tmax=True)
+    add_t, add_b, flag = check.run_k6(idx, batch, True)
+    for got, want in zip(mixed, (kw[0] + add_t, kw[1] + flag, kw[2] + add_b, kw[3])):
+        assert torch.equal(got, want)
+
+
+def test_probe_wrappers_reject_bad_inputs(cuda, indexes):
+    idx = indexes[False]
+    b = 8
+    tq = torch.zeros((b, 4), dtype=torch.int32, device=cuda)
+    args = check.k5_inputs(idx, {"term_ids": tq, "qn": torch.ones(b, dtype=torch.int32,
+                                                                  device=cuda)})
+    with pytest.raises(ValueError):
+        k5.fused_topk(*args, k5.K_MAX + 1)
+    with pytest.raises(ValueError):
+        k5.fused_topk(*args[:6], tq.long(), args[7])
+    ph = torch.zeros((b, k2.P_MAX + 1), dtype=torch.int32, device=cuda)
+    fwd = (idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT,
+           idx.title.posT, idx.body.posT)
+    with pytest.raises(ValueError):
+        k6.phrase_delta(*fwd, ph, ph.float(), ph[:, 0])
+    with pytest.raises(ValueError):
+        k6.phrase_delta(*fwd, ph[:, :4], ph[:, :4].float(), ph[:4, 0])
 
 
 def _same_up_to_ties(got, want) -> bool:

@@ -43,6 +43,12 @@ def _port_modules() -> list[str]:
     )
 
 
+#: scripts beside the package that import only the port: chip_smoke.py and
+#: the probes of experiments/ ported to the card
+_SCRIPTS = ("chip_smoke.py", "experiments/torch_fused2_probe.py",
+            "experiments/torch_phrase_delta_probe.py", "experiments/torch_tbound_probe.py",
+            "experiments/torch_membership_tune.py")
+
 #: top-level names the port and chip_smoke.py never import: the JAX stack,
 #: the JAX package, and the repo's bench.py and test modules (tests/ is on
 #: sys.path in the JAX package's tests)
@@ -56,7 +62,7 @@ def test_port_imports_without_jax_or_lxml():
     assert {"spaghettisearch_tpu_torch.parallel.mesh", "spaghettisearch_tpu_torch.parallel.sharded",
             "spaghettisearch_tpu_torch.retrieval.sharded_engine"} <= set(mods)
     code = _BLOCKER + textwrap.dedent(f"""
-        import importlib.util
+        import importlib.util, os
         try:
             import spaghettisearch_tpu
         except ImportError:
@@ -65,8 +71,10 @@ def test_port_imports_without_jax_or_lxml():
             raise AssertionError("the blocker let the JAX package through")
         for m in {mods!r}:
             importlib.import_module(m)
-        spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for name in {_SCRIPTS!r}:
+            spec = importlib.util.spec_from_file_location(
+                os.path.basename(name)[:-3], os.path.join({REPO!r}, name))
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}]
         assert not bad, bad
         print("clean")
@@ -135,7 +143,7 @@ def test_crawl_cli_builds_a_store_without_jax_lxml_aiohttp(tmp_path):
 
 def _sources() -> list[str]:
     root = os.path.dirname(spaghettisearch_tpu_torch.__file__)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, name) for name in _SCRIPTS]
     for dirpath, _, files in os.walk(root):
         paths += [os.path.join(dirpath, fn) for fn in files if fn.endswith(".py")]
     return sorted(paths)
@@ -478,7 +486,9 @@ def test_soak_append_snippets_run_without_jax(which, tmp_path):
 
 
 def test_wrappers_raise_on_other_devices():
-    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+    from spaghettisearch_tpu_torch.ops.kernels import (
+        fused, fused_topk, membership, mixed, phrase_delta,
+    )
 
     meta = torch.empty((8, 4), dtype=torch.int32, device="meta")
     t = torch.empty((8, 512), dtype=torch.int32, device="meta")
@@ -492,3 +502,7 @@ def test_wrappers_raise_on_other_devices():
                                  w[:, 0].clone(), w[:, :1].clone())
     with pytest.raises(ValueError, match="unsupported device"):
         mixed.mixed_scores_2sec(t, w, t, w, w, w, meta, meta[:, 0], meta, w[:, :4], meta[:, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_topk.fused_topk(t, w, t, w, w[0], w[0], meta, w[:, 0].clone())
+    with pytest.raises(ValueError, match="unsupported device"):
+        phrase_delta.phrase_delta(t, w, t, w, w, w, meta, w[:, :4], meta[:, 0])
