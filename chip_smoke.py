@@ -140,8 +140,9 @@ Phases (any failure raises and the script exits non-zero):
      K5 against its plain version on batches that stress a streaming
      top-k (no hit, fewer hits than k_pad, 20 equal finals across doc
      tiles so the k-th cut falls in a tie, a duplicated term, B=45 and 77
-     against 32-row tiles) and on check.ADVERSARIAL; K6 and its table
-     build on check.ADVERSARIAL's phrases; and the four probe scripts
+     against 32-row tiles) and on check.ADVERSARIAL; K6, its table
+     build and its phrase-row partition (phrase_delta.plain_phrase_rows)
+     on check.ADVERSARIAL's phrases; and the four probe scripts
      (torch_fused2_probe, torch_phrase_delta_probe at 100k,
      torch_tbound_probe, torch_membership_tune), started with phase 16's
      modes, each in a process of its own, each required to pass its
@@ -1761,8 +1762,8 @@ def main() -> int:
                       warmup=1),
     )
     k6_full = check.time_ms(lambda: check.run_k6(idx, mbatch, False))
-    say(f"# K6 at bp=128 (the rows past the phrase rows' tile skip): {k6_full:.4f} ms per call "
-        f"({smi})")
+    say(f"# K6 at bp=128 (the rows without a phrase take the store-only path): "
+        f"{k6_full:.4f} ms per call ({smi})")
     variants = {}  # K3 and K4 per variant at B=128, Q=4, qn-sorted rows
     for section in ("title", "body"):
         for emit in (True, False):
@@ -2036,9 +2037,15 @@ def main() -> int:
             if not (tabs[0][2] == tabs[1][2] and all(
                     torch.equal(tabs[0][i], tabs[1][i]) for i in (0, 1, 3))):
                 raise RuntimeError(f"K6's tables of adversarial {kind} differ from their plain build")
+            parts = [fn(batch["ph_ids"], batch["ph_valid"])
+                     for fn in (phrase_delta.cuda_phrase_rows, phrase_delta.plain_phrase_rows)]
+            if not (parts[0][3] == parts[1][3] and all(
+                    torch.equal(parts[0][i], parts[1][i]) for i in (0, 1, 2))):
+                raise RuntimeError(f"K6's phrase-row partition of adversarial {kind} differs "
+                                   "from plain_phrase_rows")
             held("phrase_delta", check.compare_delta(check.run_k6(idx, batch, True),
                                                      check.run_k6(idx, batch, True, plain=True)),
-                 f"K6 adversarial {kind} flag=True (tables equal to the plain build)")
+                 f"K6 adversarial {kind} flag=True (tables and partition equal to the plain)")
         t1 = time.perf_counter()
         res = probes.finish(smi)
         phase_launches["probe_fused2"] = {"fused_topk": res["fused2"]["launches"]["K5"]}

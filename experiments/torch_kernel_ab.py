@@ -10,13 +10,15 @@ device index as the engine does, and measures on the card:
   - K1 at B=128 (Q=4, hot split, doc-sorted bound, counts as the engine
     emits them), K2 at B=128 (Q=4, P=16) and at B=16 (Q=4, P=4, the
     serving shape), K3 at B=128 (body section, counts on, Q=4: the
-    custom-blend route's call), K4 at B=128 (Q=4, topics off), and one
+    custom-blend route's call), K4 at B=128 (Q=4, topics off), one
     custom-blend rank at B=128 (BlendedRanker._custom_forward: two K3
-    calls, phrase fold, finalize, top-k): the call, by CUDA events over 50
-    calls back to back (check.time_ms), and the kernel alone, by
-    torch.profiler (device time of the events named membership2_kernel /
-    mixed_kernel / membership1_kernel / fused_kernel, and of
-    build_tables_kernel, the probe-table build, where there is one);
+    calls, phrase fold, finalize, top-k), K5 at B=256 (Q=4, k_pad=16,
+    chip_smoke.py phase 4's batch) and K6 on the B=128, P=16 mixed batch's
+    first 16 rows and on all 128 (flag off, and on at bp=128): the call,
+    by CUDA events over 50 calls back to back (check.time_ms), and each
+    kernel it launches alone, by torch.profiler (device time per call of
+    every kernel in the trace, by name: the probe-table build, the sweep,
+    K5's merge; `kernel_device_ms` sums them);
   - each result against its plain version (check.compare, compare_section,
     compare_final; the custom rank's top-50 scores against the rank with
     K3's plain version);
@@ -27,7 +29,12 @@ Prints one JSON line. To compare two commits, run it in one chip call for
 both, in turns (parent, change, change, parent), on the same --db; with
 --outputs FILE the first run saves every case's outputs and the later ones
 report whether theirs are bit-identical (a kernel refactor that must not
-change a result).
+change a result). With --occupancy it also prints, per kernel the cases
+launched, the nvcc/ptxas lines of its build (registers, spills, static
+shared memory), its launch shape and dynamic shared memory (from the
+profiler's trace), and its resident blocks per SM
+(cuOccupancyMaxActiveBlocksPerMultiprocessor on the library's own cubin,
+loaded through libcuda).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +60,8 @@ def main() -> int:
     ap.add_argument("--bursts", type=int, default=1, help="measured serving bursts")
     ap.add_argument("--outputs", default="", help="save each case's outputs here, or, when "
                     "the file exists, compare them with the saved ones bit for bit")
+    ap.add_argument("--occupancy", action="store_true",
+                    help="also report each kernel's build lines, launch shape and occupancy")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -90,6 +100,8 @@ def main() -> int:
     m128 = check.to_device(check.mixed_batch(idx, 128, 4, 16, seed=1, df=df, snap=snap), "cuda")
     m16 = check.to_device(check.mixed_batch(idx, 16, 4, 4, seed=2, df=df, snap=snap), "cuda")
     k4_in = check.fused_inputs(idx, cbatch, 1, seed=1)
+    k5_in = check.k5_inputs(idx, check.to_device(
+        check.keyword_batch(idx, 256, 4, seed=256, df=df, split=False), "cuda"))
     qlen = cbatch["qn"].clamp(min=1).to(torch.float32)
     tp0 = torch.zeros((128, idx.n_categories), device="cuda")
     title_only = BlendedRanker(w_pagerank=0.0, w_title=1.0, w_body=0.0)
@@ -105,24 +117,33 @@ def main() -> int:
         finally:
             membership.forward_scores = saved
 
-    cases = {
+    cases = {  # name -> (run(plain=False), compare(got, want))
         "K1 B=128": (lambda plain=False: check.run_k1(idx, kbatch, emit, tmax, plain=plain),
-                     "membership2_kernel", check.compare),
+                     check.compare),
         "K2 B=128": (lambda plain=False: check.run_k2(idx, m128, emit, plain=plain),
-                     "mixed_kernel", check.compare),
+                     check.compare),
         "K2 B=16": (lambda plain=False: check.run_k2(idx, m16, emit, plain=plain),
-                    "mixed_kernel", check.compare),
-        "K3 body B=128": (lambda plain=False: check.run_k3(idx, cbatch, True, "body", plain=plain),
-                          "membership1_kernel", check.compare_section),
+                    check.compare),
+        "K3 body B=128": (lambda plain=False: check.run_k3(idx, cbatch, True, "body",
+                                                           plain=plain),
+                          check.compare_section),
         "K4 B=128 C=1": (lambda plain=False: check.run_k4(idx, cbatch, k4_in, plain=plain),
-                         "fused_kernel", check.compare_final),
-        "custom rank B=128": (custom_rank, "membership1_kernel",
+                         check.compare_final),
+        "custom rank B=128": (custom_rank,
                               lambda got, want: check.compare_final(got[0], want[0])),
+        "K5 B=256": (lambda plain=False: check.run_k5(k5_in, plain=plain), check.compare_topk),
+        "K6 bp=16": (lambda plain=False: check.run_k6(idx, m128, False, 16, plain=plain),
+                     check.compare_delta),
+        "K6 bp=128": (lambda plain=False: check.run_k6(idx, m128, False, plain=plain),
+                      check.compare_delta),
+        "K6 bp=128 flag": (lambda plain=False: check.run_k6(idx, m128, True, plain=plain),
+                           check.compare_delta),
     }
     out = {"label": args.label, "device": smi, "setup_s": setup_s, "cases": {}}
     saved = torch.load(args.outputs) if args.outputs and os.path.exists(args.outputs) else None
     outputs = {}
-    for name, (run, kname, compare) in cases.items():
+    cubins = Cubins() if args.occupancy else None
+    for name, (run, compare) in cases.items():
         got = run()
         outputs[name] = [x.cpu() for x in got if isinstance(x, torch.Tensor)]
         rep = compare(got, run(plain=True))
@@ -132,13 +153,19 @@ def main() -> int:
             for _ in range(20):
                 run()
             torch.cuda.synchronize()
-        dev_us = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key)
-                  for k in (kname, "build_tables_kernel")}
+        per_kernel = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                key = short_name(e.key)
+                per_kernel[key] = per_kernel.get(key, 0.0) + e.self_device_time_total / 1e3 / 20
         out["cases"][name] = {
-            "wrapper_ms": ms, "kernel_device_ms": dev_us[kname] / 1e3 / 20,
-            "table_build_device_ms": dev_us["build_tables_kernel"] / 1e3 / 20,
+            "wrapper_ms": ms, "kernel_device_ms": sum(per_kernel.values()),
+            "kernels_device_ms": per_kernel,
+            "table_build_device_ms": per_kernel.get("ss::probe::build_tables_kernel", 0.0),
             "ok": rep["ok"], "max_abs_err": rep["max_abs_err"],
         }
+        if cubins is not None:
+            out["cases"][name]["occupancy"] = cubins.report(trace_shapes(prof))
         if saved is not None and name in saved:
             out["cases"][name]["bit_identical"] = len(saved[name]) == len(outputs[name]) and all(
                 torch.equal(a, b) for a, b in zip(saved[name], outputs[name]))
@@ -148,6 +175,131 @@ def main() -> int:
         out["serving"] = serve(db, snap, idx, args.bursts)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def short_name(name: str) -> str:
+    """A kernel's demangled name without its return type and parameters,
+    template arguments as __cxa_demangle prints them
+    (ss::phrase_delta_kernel<true, 8>; cu++filt writes (bool)1, (int)8)."""
+    name = name.removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    name = name.replace("(bool)1", "true").replace("(bool)0", "false")
+    return re.sub(r"\((?:int|unsigned int)\)(\d+)", r"\1", name)
+
+
+def trace_shapes(prof) -> dict:
+    """{kernel: (block threads, total shared memory bytes, grid)} of the
+    kernels in a torch.profiler run, from its exported trace's args."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    shapes = {}
+    for e in events:
+        a = e.get("args", {})
+        if e.get("cat") == "kernel" and "block" in a and e["name"].find("ss::") >= 0:
+            shapes[short_name(e["name"])] = (
+                int(a["block"][0]) * int(a["block"][1]) * int(a["block"][2]),
+                int(a.get("shared memory", 0)), a.get("grid"))
+    return shapes
+
+
+class Cubins:
+    """The kernels of the tree's built libraries, loaded from each
+    library's own cubin (cuobjdump -xelf), loaded through libcuda, by
+    short_name (the first library that holds a name wins: the probe-table
+    build is the same code in each)."""
+
+    def __init__(self) -> None:
+        import ctypes
+        import glob
+        import tempfile
+
+        import torch
+
+        from spaghettisearch_tpu_torch.ops.kernels import (
+            _build, fused, fused_topk, membership, mixed, phrase_delta,
+        )
+
+        self.cu = cu = ctypes.CDLL("libcuda.so.1")
+        torch.zeros(1, device="cuda")  # the primary context, current on this thread
+        bin_dir = os.path.dirname(_build.nvcc_path())
+        self.funcs = {}
+        for mod in (membership, mixed, fused, fused_topk, phrase_delta):
+            built = mod.library()
+            with tempfile.TemporaryDirectory() as tmp:
+                subprocess.run([os.path.join(bin_dir, "cuobjdump"), "-xelf", "all", built.path],
+                               cwd=tmp, check=True, capture_output=True)
+                cubins = glob.glob(os.path.join(tmp, "*.cubin"))
+                if len(cubins) != 1:
+                    raise RuntimeError(f"{built.path}: {len(cubins)} cubins")
+                with open(cubins[0], "rb") as f:
+                    image = f.read()
+            module = ctypes.c_void_p()
+            err = cu.cuModuleLoadData(ctypes.byref(module), image)
+            if err:
+                raise RuntimeError(f"cuModuleLoadData: CUresult {err}")
+            n = ctypes.c_uint()
+            cu.cuModuleGetFunctionCount(ctypes.byref(n), module)
+            handles = (ctypes.c_void_p * n.value)()
+            cu.cuModuleEnumerateFunctions(handles, n.value, module)
+            for fn in handles:
+                raw = ctypes.c_char_p()
+                cu.cuFuncGetName(ctypes.byref(raw), ctypes.c_void_p(fn))
+                mangled = raw.value.decode()
+                pretty = subprocess.run([os.path.join(bin_dir, "cu++filt"), mangled],
+                                        capture_output=True, text=True, check=True).stdout
+                self.funcs.setdefault(short_name(pretty.strip()),
+                                      (mod.__name__.rsplit(".", 1)[-1], fn, mangled, built.log))
+
+    def report(self, shapes: dict) -> dict:
+        """Per kernel of `shapes`: the ptxas lines of its build, registers,
+        static shared memory, local (spill) bytes, its launch (block,
+        grid, dynamic shared memory) and its resident blocks per SM at that
+        launch (cuOccupancyMaxActiveBlocksPerMultiprocessor)."""
+        import ctypes
+
+        cu = self.cu
+        out = {}
+        for key, (block, smem_total, grid) in shapes.items():
+            if key not in self.funcs:
+                out[key] = {"found": False}
+                continue
+            lib, fn, mangled, log = self.funcs[key]
+            fn = ctypes.c_void_p(fn)
+
+            def attr(a: int) -> int:
+                v = ctypes.c_int()
+                cu.cuFuncGetAttribute(ctypes.byref(v), a, fn)
+                return v.value
+
+            static = attr(1)  # CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES
+            dyn = max(0, smem_total - static)
+            cu.cuFuncSetAttribute(fn, 8, 232448 - static)  # MAX_DYNAMIC_SHARED_SIZE_BYTES
+            blocks = ctypes.c_int()
+            err = cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                ctypes.byref(blocks), fn, block, ctypes.c_size_t(dyn))
+            lines, keep = [], False
+            for line in log.splitlines():  # ptxas: "Compiling entry function '<mangled>'"
+                if "Compiling entry function" in line:
+                    keep = f"'{mangled}'" in line
+                if keep and re.search(r"registers|spill|smem|Compiling entry", line):
+                    lines.append(line.strip())
+            out[key] = {
+                "library": lib, "registers": attr(4), "static_smem": static,
+                "local_bytes": attr(3), "block": block, "grid": grid, "dynamic_smem": dyn,
+                "blocks_per_sm": None if err else blocks.value,
+                "warps_per_sm": None if err else blocks.value * block // 32, "ptxas": lines,
+            }
+        return out
 
 
 def serve(db, snap, idx, bursts: int = 1, n: int = 320, clients: int = 8) -> list[dict]:

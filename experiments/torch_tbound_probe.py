@@ -19,6 +19,11 @@ computes with body_tmax (csrc/membership.cu: each warp stops at its
     a TPU megacore's grid) and "sorted-only": K1 static and K1 with
     body_tmax on that layout. Hopper schedules blocks dynamically, so the
     two layouts show what balancing costs here.
+Beside them, on the natural order: K1's plain version and
+torch.sparse.mm per section (CSR [D, V+1] weights of the real slots times
+the [V+1, B] query-multiplicity matrix; scores only, as the timed K1 runs
+elide counts), the one PyTorch call for the same function, held to K1's
+scores within rel 1e-5 (another summation order) before it is timed.
 The check (the original's, held per layout): the bounded run's scores
 within rel 1e-6 of static on the same layout and its counts equal; and,
 un-permuted, the title exactly and the body within rel 1e-6 of the
@@ -80,6 +85,31 @@ def make_data(n: int, seed: int = 0) -> dict:
             "term_ids": term_ids, "qn": qn}
 
 
+def sparse_section(ft, fw, tq, qn, n_words: int):
+    """(W, M) of torch.sparse.mm(W, M) for one section: W the CSR [D, V+1]
+    weights of the real slots (each doc's columns sorted), M the dense
+    [V+1, B] multiplicity matrix of each row's first qn columns, so
+    sparse.mm(W, M)[d, b] is score[b, d]."""
+    import torch
+
+    big = torch.iinfo(torch.int32).max
+    cols, order = torch.where(ft >= 0, ft, big).t().sort(dim=1)
+    vals = fw.t().gather(1, order)
+    real = cols != big
+    crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64, device=ft.device)
+    crow[1:] = real.sum(1).cumsum(0)
+    w = torch.sparse_csr_tensor(crow, cols[real].long(), vals[real],
+                                size=(cols.shape[0], n_words + 1))
+    b, q = tq.shape
+    active = torch.arange(q, device=ft.device)[None, :] < qn[:, None]
+    m = torch.zeros((n_words + 1, b), dtype=torch.float32, device=ft.device)
+    m.index_put_((torch.where(active, tq.long(), n_words).flatten(),
+                  torch.arange(b, device=ft.device).repeat_interleave(q)),
+                 torch.ones(b * q, device=ft.device), accumulate=True)
+    m[n_words] = 0.0
+    return w, m
+
+
 def sorted_layouts(nt: np.ndarray) -> list[tuple[str, np.ndarray, np.ndarray]]:
     """(label, doc permutation, tmax per 512-doc block) of the docs sorted
     by distinct count, descending: block-balanced, then sorted only."""
@@ -132,7 +162,19 @@ def main(argv=None) -> dict:
     res = {"probe": "tbound", "device": str(dev), "n": args.n, "static_natural_ms": ms,
            "bound_ms": bound[0], "bound_by": bound[1], "layouts": {}}
     base_ts, _, base_bs, _ = k1(base, None, False)
-    del base
+    plain_ms = check.time_on(
+        lambda: membership.plain_forward_scores_2sec(*base, jtq, jqn, emit_counts=False),
+        dev, iters=1, warmup=1)
+    print(f"K1 plain version (natural order): {plain_ms:.4f} ms", flush=True)
+    ops = [sparse_section(base[k], base[k + 1], jtq, jqn, N_VOCAB) for k in (0, 2)]
+    lib_rel = max(rel_err(torch.sparse.mm(w, m).t(), want)
+                  for (w, m), want in zip(ops, (base_ts, base_bs)))
+    lib_ms = check.time_on(lambda: [torch.sparse.mm(w, m) for w, m in ops], dev,
+                           iters=args.reps, warmup=1)
+    print(f"torch.sparse.mm per section (natural order): {lib_ms:.4f} ms "
+          f"(max_rel vs K1 {lib_rel:.2e})", flush=True)
+    res.update(plain_ms=plain_ms, library_ms=lib_ms, library_max_rel=lib_rel)
+    del base, ops
     ok = True
     for label, perm, tmax_np in sorted_layouts(data["nt"]):
         arrs = put_layout(perm)
@@ -161,7 +203,7 @@ def main(argv=None) -> dict:
             "swept_share": float(tmax_np.sum() / (len(tmax_np) * data["bft"].shape[0])),
         }
         del arrs
-    res["ok"] = ok
+    res["ok"] = ok and lib_rel <= 1e-5
     res["launches"] = {"K1": membership.LAUNCHES}
     print(json.dumps(res), flush=True)
     return res

@@ -15,64 +15,72 @@
 // The prototype's own finalize, not the production blend (no PageRank).
 //
 // What bounds it on the H100: bytes. It must read the term id of each real
-// slot of both sections (~28 MB on the probe's synthetic 100k docs, ~34 MB
-// on the 100k benchmark corpus), a weight only where a row asks for the
-// slot's term, mag_t and mag_b once (0.8 MB), and write [B, k] values and
-// ids: 9-13 us at 3.35 TB/s. The unfused path writes (and its top-k reads
-// back) a [B, D] f32 matrix: 103 MB at B=256.
+// slot of both sections (~34 MB on the 100k benchmark corpus), a weight
+// only where a row asks for the slot's term, mag_t and mag_b once (0.8 MB),
+// and write [B, k] values and ids: ~13 us at 3.35 TB/s. The unfused path
+// writes (and its top-k reads back) a [B, D] f32 matrix: 103 MB at B=256.
 //
 // Design. The TPU kernel carries each row's top-k across a sequential grid
-// in VMEM. Blocks of a CUDA grid run in no order, so the top-k is two
-// passes here:
-//  1. fused_topk_kernel: a block owns one row tile (R rows, one probe table,
-//     as K4: all Q columns, built once per tile by probe.cuh's
-//     build_tables_kernel) and `chunks` consecutive 128-doc chunks. It
-//     stages the table once, then per chunk sweeps title and body into two
-//     shared-memory sum arrays (one column per thread, hits compacted per
-//     warp, a 64-bit hit mask for candidacy, as K4), finalizes each row's
-//     value in place with the round-to-nearest intrinsics in the plain
-//     version's order, and merges the chunk into each row's running
-//     top-k: one warp per row, the list held one entry per lane, the 128
-//     candidates read a warp-row at a time; a ballot keeps those above the
-//     row's k-th value (almost none once the list fills) and each is
-//     inserted by a shuffle. The chunk's docs come in ascending id order,
-//     so an equal value already listed always has the lower id, and a tie
-//     at the k-th value never enters. The block writes its lists as
-//     partials [n_parts, B, k], 8 B a slot.
-//  2. topk_merge_kernel: one warp per row streams its n_parts lists in part
-//     order (ascending doc ranges) through the same insertion.
-// chunks is chosen by the wrapper so that the grid is about two waves of
-// resident blocks: more chunks per block mean fewer partials (4 MB at
-// B=256, 100k docs), fewer make more blocks. Row tiles are 32 rows
-// (fused_topk.py ROWS): two [32, 128] f32 sum arrays, the table and the
-// lists take ~41 KB, 5 blocks per SM. On an H100 at B=256 and 100k docs
-// a call takes 0.55 ms, 2.3% of its bound on the benchmark corpus, against
-// 3.3-3.7 ms for the production keyword scorer's K1 + finalize + top-k on
-// the probe's synthetic corpus (PERF.md): each
-// chunk is swept once per row tile (8 times at B=256, from L2 after the
-// first), which is where a faster version would start.
+// in VMEM; blocks of a CUDA grid run in no order, so the top-k is two
+// passes here: fused_topk_kernel (below) keeps a list per row in each block
+// and writes them as partials [n_parts, B, k], and topk_merge_kernel merges
+// each row's partials with four warps (a quarter of the parts each, then
+// one warp merges their four lists). Every list orders its entries by
+// (value descending, doc id ascending), in the insertion and in the merge,
+// so no tie rule rests on the order in which candidates arrive. A row's
+// sums add its slots in slot order, so the values are bit-identical to the
+// first port's.
+//
+// What was measured (experiments/torch_kernel_ab.py, an NVIDIA H100 80GB
+// HBM3 at 700 W, B=256 on the 100k benchmark corpus; PERF.md section 6): the
+// first design spent 0.48 of its 0.54 ms in the sweep kernel and 0.05 ms
+// in a one-warp-per-row merge. Its selection offered every candidate of the
+// first chunks a block saw to lists that had yet to fill; sharing each
+// row's running k-th value as a threshold across blocks (below) cuts
+// that, and the four-warp merge halves the merge. A design that swept each
+// chunk once for the whole batch (the table of all 256 rows, the slots
+// whose terms it holds listed per thread, then the 32-row tiles done from
+// shared memory) took 1.0-1.3 ms: its 112 KB of shared memory held it at
+// 2 blocks per SM, a doc's list overflowed into rescans, and the tile
+// phase's walks ran at that occupancy; so did 64-row tiles (4 sweeps at 2
+// blocks per SM: 0.94 ms), and a pilot kernel that set the thresholds
+// from a sample of chunks cost more (0.10 ms) than it saved. What holds the
+// kernel now is its eight sweeps of each chunk (one per 32-row tile, each
+// ~0.05 ms at 5 blocks per SM, the first from device memory and the
+// others mostly from L2) and the finalize of every (row, doc) hit. A
+// B=256 call takes 0.4872 ms there (0.5441-0.5505 ms for the first
+// design in the same runs): the sweep kernel 0.439 ms, the merge 0.032 ms.
 #include <math.h>
 
 #include "probe.cuh"
 
 namespace ss {
+namespace topk {
 
-constexpr int kKMax = 32;  // a list is held one entry per lane
+constexpr int kDocs = probe::kDocs;  // threads per block, one doc each
+constexpr int kKMax = 32;            // a list is held one entry per lane
+constexpr int kInFlight = 16;        // slot ids a thread has in flight
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ inline float normalize(float s, float mag, float qmag) {
   const float n = __fdiv_rn(s, __fmul_rn(mag, qmag));
   return isnan(n) ? 0.f : n;
 }
 
-// Insert (x, xi) into the warp's sorted list (lane l < K holds entry l,
-// value descending). Every listed entry equal to x has a lower id, so x
-// goes after them. Warp-uniform arguments; entries pushed past K drop.
+// (x, xi) ranks before (y, yi): value descending, then doc id ascending.
+__device__ __forceinline__ bool before(float x, int xi, float y, int yi) {
+  return x > y || (x == y && xi < yi);
+}
+
+// Insert (x, xi) into the warp's sorted list (lane l < K holds entry l).
+// Warp-uniform arguments; the entry pushed past K drops.
 __device__ __forceinline__ void list_insert(float& lv, int& li, float x,
                                             int xi, int K, int lane) {
-  const int pos = __popc(__ballot_sync(probe::kFull, lane < K && lv >= x));
+  const int pos =
+      __popc(__ballot_sync(kFull, lane < K && before(lv, li, x, xi)));
   if (pos >= K) return;
-  const float uv = __shfl_up_sync(probe::kFull, lv, 1);
-  const int ui = __shfl_up_sync(probe::kFull, li, 1);
+  const float uv = __shfl_up_sync(kFull, lv, 1);
+  const int ui = __shfl_up_sync(kFull, li, 1);
   if (lane == pos) {
     lv = x;
     li = xi;
@@ -82,23 +90,43 @@ __device__ __forceinline__ void list_insert(float& lv, int& li, float x,
   }
 }
 
-// Offer this lane's candidate (v, id) of a warp-wide batch to the list, in
-// lane order; thresh is the list's k-th value (-inf until it fills).
-__device__ __forceinline__ void offer(float& lv, int& li, float& thresh,
+// Offer this lane's candidate (v, id) of a warp-wide batch to the list;
+// (tv, ti) is the list's k-th entry ((-inf, 0) until it fills).
+__device__ __forceinline__ void offer(float& lv, int& li, float& tv, int& ti,
                                       float v, int id, int K, int lane) {
-  unsigned m = __ballot_sync(probe::kFull, v > thresh);
+  unsigned m = __ballot_sync(kFull, before(v, id, tv, ti));
   while (m != 0u) {
     const int src = __ffs(m) - 1;
     m &= m - 1;
-    const float x = __shfl_sync(probe::kFull, v, src);
-    const int xi = __shfl_sync(probe::kFull, id, src);
-    if (!(x > thresh)) continue;  // the list rose past it meanwhile
+    const float x = __shfl_sync(kFull, v, src);
+    const int xi = __shfl_sync(kFull, id, src);
+    if (!before(x, xi, tv, ti)) continue;  // the list rose past it meanwhile
     list_insert(lv, li, x, xi, K, lane);
-    thresh = __shfl_sync(probe::kFull, lv, K - 1);
+    tv = __shfl_sync(kFull, lv, K - 1);
+    ti = __shfl_sync(kFull, li, K - 1);
   }
 }
 
-__global__ void __launch_bounds__(probe::kDocs)
+// A row's threshold as the global array holds it: the final's bits, which
+// order like the value (every final is >= +0); negative: none yet.
+__device__ __forceinline__ float thr_value(int x) {
+  return x < 0 ? -INFINITY : __int_as_float(x);
+}
+
+// One row tile (R rows, one probe table, all Q columns, as K4) over
+// `chunks` 128-doc chunks: per chunk, both sections are swept into two
+// shared-memory sum arrays (one column per thread, hits compacted per warp,
+// 16 slot ids in flight per thread, a 64-bit hit mask for candidacy, as
+// K4), each hit row is finalized with the round-to-nearest intrinsics in the
+// plain version's order, and kept if it is at or above the row's threshold
+// and ranks above the k-th entry of the block's list for the row (value
+// descending, doc id ascending); one warp per row merges the kept docs into
+// the row's list (a ballot against the k-th entry, then one insertion per
+// survivor), and only rows where some doc was kept are visited. A full
+// list's k-th value is published to the row's threshold `thr` (atomicMax):
+// that block holds k docs at or above it, so no doc below it can rank among
+// the row's k. Every block reads the thresholds at each chunk.
+__global__ void __launch_bounds__(kDocs)
 fused_topk_kernel(const int* __restrict__ title_ftT,
                   const float* __restrict__ title_fwT, int Tt,
                   const int* __restrict__ body_ftT,
@@ -109,7 +137,8 @@ fused_topk_kernel(const int* __restrict__ title_ftT,
                   const int* __restrict__ tbl_pay, int N, int R, int B,
                   const float* __restrict__ qlen, float w_title,
                   float w_body, float scale, int K, int chunks,
-                  float* __restrict__ part_v, int* __restrict__ part_i) {
+                  int* __restrict__ thr, float* __restrict__ part_v,
+                  int* __restrict__ part_i) {
   using namespace probe;
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem sm = smem_layout(smem, R, 2, N);
@@ -117,8 +146,11 @@ fused_topk_kernel(const int* __restrict__ title_ftT,
   float* acc_b = sm.acc + R * kDocs;
   const float* finals = sm.acc - threadIdx.x;  // [R, kDocs], row-major
   float* s_qmag = reinterpret_cast<float*>(sm.extra);  // [R]
-  float* s_lv = s_qmag + R;                            // [R, K]
+  float* s_thr = s_qmag + R;                           // [R]
+  float* s_lv = s_thr + R;                             // [R, K]
   int* s_li = reinterpret_cast<int*>(s_lv + R * K);    // [R, K]
+  uint64_t* s_cand = reinterpret_cast<uint64_t*>(s_li + R * K);  // [kDocs]
+  uint64_t* s_rows = s_cand + kDocs;  // rows with a kept doc in this chunk
 
   const int tile = blockIdx.x;
   const int r0 = tile * R;
@@ -126,58 +158,86 @@ fused_topk_kernel(const int* __restrict__ title_ftT,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // read after stage_table's barriers
-  for (int i = threadIdx.x; i < rows; i += blockDim.x)
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     s_qmag[i] = __fsqrt_rn(__ldg(qlen + r0 + i));
+    s_thr[i] = -INFINITY;
+  }
   for (int i = threadIdx.x; i < R * K; i += blockDim.x) {
     s_lv[i] = -INFINITY;
     s_li[i] = 0;
   }
+  if (threadIdx.x == 0) *s_rows = 0ull;
   const size_t off = (size_t)tile * N;
   const int n = stage_table(sm.term, sm.pay, sm.filter, tbl_term + off,
                             tbl_pay + off, N);
 
-  const int first = blockIdx.y * chunks * kDocs;
+  const int first = blockIdx.y * chunks;
   for (int c = 0; c < chunks; ++c) {
-    const int base = first + c * kDocs;
+    const int base = (first + c) * kDocs;
     if (base >= D) break;  // block-uniform
     const int d = base + threadIdx.x;
     const bool live = d < D;
     zero_rows(acc_t, R);
     zero_rows(acc_b, R);
+    // the other blocks' thresholds (through L2)
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      s_thr[i] = fmaxf(s_thr[i], thr_value(__ldcg(thr + r0 + i)));
     unsigned long long hit = 0ull;
-    sweep<false, false, true, true, float>(title_ftT, title_fwT, Tt, D, d,
-                                          live, sm.term, sm.pay, sm.filter, n,
-                                          acc_t, nullptr, nullptr, &hit);
-    sweep<false, false, true, true, float>(body_ftT, body_fwT, Tb, D, d, live,
-                                          sm.term, sm.pay, sm.filter, n,
-                                          acc_b, nullptr, nullptr, &hit);
+    sweep<false, false, true, true, float, kInFlight>(
+        title_ftT, title_fwT, Tt, D, d, live, sm.term, sm.pay, sm.filter, n,
+        acc_t, nullptr, nullptr, &hit);
+    sweep<false, false, true, true, float, kInFlight>(
+        body_ftT, body_fwT, Tb, D, d, live, sm.term, sm.pay, sm.filter, n,
+        acc_b, nullptr, nullptr, &hit);
     const float mt = live ? __ldg(mag_t + d) : 0.f;
     const float mb = live ? __ldg(mag_b + d) : 0.f;
+    __syncthreads();  // s_thr
+    uint64_t keep = 0ull;
     for (int r = 0; r < rows; ++r) {
-      float v = -INFINITY;
       if (live && ((hit >> r) & 1ull)) {
         const float qm = s_qmag[r];
         const float tn = normalize(acc_t[r * kDocs], mt, qm);
         const float bn = normalize(acc_b[r * kDocs], mb, qm);
-        v = __fmul_rn(__fadd_rn(__fmul_rn(w_title, tn), __fmul_rn(w_body, bn)),
-                      scale);
+        const float v = __fmul_rn(
+            __fadd_rn(__fmul_rn(w_title, tn), __fmul_rn(w_body, bn)), scale);
+        if (v >= s_thr[r] &&
+            before(v, d, s_lv[r * K + K - 1], s_li[r * K + K - 1])) {
+          acc_t[r * kDocs] = v;
+          keep |= 1ull << r;
+        }
       }
-      acc_t[r * kDocs] = v;
     }
+    s_cand[threadIdx.x] = keep;
+    const unsigned lo = __reduce_or_sync(kFull, (unsigned)keep);
+    const unsigned hi = __reduce_or_sync(kFull, (unsigned)(keep >> 32));
+    if (lane == 0 && (lo | hi) != 0u)
+      atomicOr(reinterpret_cast<unsigned long long*>(s_rows),
+               (unsigned long long)hi << 32 | lo);
     __syncthreads();
+    const uint64_t any = *s_rows;
     for (int r = warp; r < rows; r += kDocs / 32) {
+      if (!((any >> r) & 1ull)) continue;  // warp-uniform
       float lv = lane < K ? s_lv[r * K + lane] : -INFINITY;
       int li = lane < K ? s_li[r * K + lane] : 0;
-      float thresh = __shfl_sync(kFull, lv, K - 1);
-      for (int j = 0; j < kDocs; j += 32)
-        offer(lv, li, thresh, finals[r * kDocs + j + lane], base + j + lane, K,
-              lane);
+      float tv = __shfl_sync(kFull, lv, K - 1);
+      int ti = __shfl_sync(kFull, li, K - 1);
+      for (int j = 0; j < kDocs; j += 32) {
+        const bool kept = (s_cand[j + lane] >> r) & 1ull;
+        offer(lv, li, tv, ti, kept ? finals[r * kDocs + j + lane] : -INFINITY,
+              base + j + lane, K, lane);
+      }
       if (lane < K) {
         s_lv[r * K + lane] = lv;
         s_li[r * K + lane] = li;
       }
+      // a full list's k-th value bounds the row's k-th final from below
+      if (lane == 0 && tv > s_thr[r]) {
+        s_thr[r] = tv;
+        atomicMax(thr + r0 + r, __float_as_int(tv));
+      }
     }
-    __syncthreads();  // the sums are zeroed for the next chunk
+    __syncthreads();  // the sums, s_cand and s_rows are reset next chunk
+    if (threadIdx.x == 0) *s_rows = 0ull;
   }
   for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
     const size_t at = ((size_t)blockIdx.y * B + r0) * K + i;
@@ -186,20 +246,21 @@ fused_topk_kernel(const int* __restrict__ title_ftT,
   }
 }
 
-// One warp per row: merge the row's n_parts lists (partials [n_parts, B,
-// K]) in part order, 32 slots a step.
+// One block of four warps per row: each warp merges a quarter of the row's
+// n_parts lists (partials [n_parts, B, K]), then warp 0 merges the four.
 __global__ void __launch_bounds__(128)
 topk_merge_kernel(const float* __restrict__ part_v,
                   const int* __restrict__ part_i, int n_parts, int B, int K,
                   float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ float s_v[4][kKMax];
+  __shared__ int s_i[4][kKMax];
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;  // a whole warp
-  float lv = -INFINITY;
-  int li = 0;
-  float thresh = -INFINITY;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  float lv = -INFINITY, tv = -INFINITY;
+  int li = 0, ti = 0;
   const int total = n_parts * K;
-  for (int c0 = 0; c0 < total; c0 += 32) {
+  for (int c0 = warp * 32; c0 < total; c0 += 128) {
     const int c = c0 + lane;
     float v = -INFINITY;
     int id = 0;
@@ -208,30 +269,51 @@ topk_merge_kernel(const float* __restrict__ part_v,
       v = __ldg(part_v + at);
       id = __ldg(part_i + at);
     }
-    offer(lv, li, thresh, v, id, K, lane);
+    offer(lv, li, tv, ti, v, id, K, lane);
   }
+  if (lane < K) {
+    s_v[warp][lane] = lv;
+    s_i[warp][lane] = li;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < 4; ++w)
+    offer(lv, li, tv, ti, lane < K ? s_v[w][lane] : -INFINITY,
+          lane < K ? s_i[w][lane] : 0, K, lane);
   if (lane < K) {
     out_v[(size_t)b * K + lane] = lv;
     out_i[(size_t)b * K + lane] = li;
   }
 }
 
+}  // namespace topk
 }  // namespace ss
 
-// K5: build the batch's shared table (all Q columns, as K4) into `tables`
-// (probe.cuh Tables layout, one section), sweep and select per block into
-// the partials, then merge into out_v / out_i [B, K].
+// Dynamic shared memory of the sweep kernel: two sum arrays, the filter and
+// the table, then R query magnitudes, R thresholds, R lists of K entries,
+// the docs' kept-row masks and one mask of rows.
+static size_t topk_smem(int R, int N, int K) {
+  return ss::probe::smem_bytes(R, 2, N, (size_t)R * 8 + (size_t)R * K * 8 +
+                                            (size_t)ss::probe::kDocs * 8 + 8);
+}
+
+// K5: build the batch's shared table per row tile (all Q columns, as K4)
+// into `tables` (probe.cuh Tables layout, one section), clear the rows'
+// thresholds `thr` [B], sweep and select per block into the partials
+// [n_parts, B, K] (a block: one row tile, `chunks` chunks), then merge into
+// out_v / out_i [B, K].
 extern "C" int ss_fused_topk(const int* title_ftT, const float* title_fwT,
                              int Tt, const int* body_ftT,
                              const float* body_fwT, int Tb, int D,
                              const float* mag_t, const float* mag_b,
                              const int* tq, int B, int Q, const float* qlen,
                              float w_title, float w_body, float scale, int K,
-                             int chunks, int* tables, int R, int N,
+                             int chunks, int* tables, int R, int N, int* thr,
                              float* part_v, int* part_i, float* out_v,
                              int* out_i, void* stream) {
   using ss::probe::kDocs;
-  if (K < 1 || K > ss::kKMax || Q < 1 || Q > ss::probe::kQMax || R < 1 ||
+  namespace tk = ss::topk;
+  if (K < 1 || K > tk::kKMax || Q < 1 || Q > ss::probe::kQMax || R < 1 ||
       R > ss::probe::kRowsMax || chunks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -241,22 +323,21 @@ extern "C" int ss_fused_topk(const int* title_ftT, const float* title_fwT,
   int err = ss::probe::launch_build(tq, B, Q, nullptr, nullptr, nullptr,
                                     nullptr, 0, R, N, 1, tb, st);
   if (err != 0) return err;
-  // two sum arrays, the filter and the table, then R qmags and R lists
-  const size_t smem =
-      ss::probe::smem_bytes(R, 2, N, (size_t)R * 4 + (size_t)R * K * 8);
-  cudaError_t e = cudaFuncSetAttribute(
-      ss::fused_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = cudaMemsetAsync(thr, 0xff, (size_t)B * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = topk_smem(R, N, K);
+  e = cudaFuncSetAttribute(tk::fused_topk_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_chunks = (D + kDocs - 1) / kDocs;
   const int n_parts = (n_chunks + chunks - 1) / chunks;
-  ss::fused_topk_kernel<<<dim3(n_tiles, n_parts), kDocs, smem, st>>>(
+  tk::fused_topk_kernel<<<dim3(n_tiles, n_parts), kDocs, smem, st>>>(
       title_ftT, title_fwT, Tt, body_ftT, body_fwT, Tb, D, mag_t, mag_b,
-      tb.term, tb.pay, N, R, B, qlen, w_title, w_body, scale, K, chunks, part_v,
-      part_i);
+      tb.term, tb.pay, N, R, B, qlen, w_title, w_body, scale, K, chunks, thr,
+      part_v, part_i);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ss::topk_merge_kernel<<<(B + 3) / 4, 128, 0, st>>>(part_v, part_i, n_parts,
-                                                      B, K, out_v, out_i);
+  tk::topk_merge_kernel<<<B, 128, 0, st>>>(part_v, part_i, n_parts, B, K,
+                                           out_v, out_i);
   return (int)cudaGetLastError();
 }

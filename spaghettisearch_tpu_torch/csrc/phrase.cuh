@@ -16,7 +16,11 @@
 // phrase hits in a section than the log holds (kLog) is checked by
 // rescanning its slots once per phrase row of the tile. Positions come from
 // the doc-major planes posT[c*T + t, d], int16 (32767 = pad -> POS_BIG) or
-// f32, dequantized exactly like the TPU kernel's _deq_posT.
+// f32, dequantized exactly like the TPU kernel's _deq_posT. The chain check
+// is compiled for a bucket kC of plane counts (K6 instantiates 4, 8, 16 and
+// 32 and picks the bucket the index's C falls in; K2 keeps 32): its anchor
+// and position lists are kC registers each, and it makes kC * kC compares.
+// What a match does besides adding its weights is the caller's (OnMatch).
 #pragma once
 
 #include "probe.cuh"
@@ -77,34 +81,35 @@ struct ArraySlots {
 
 // The positional chain of one (row, doc, section) whose every required
 // position p is at slot_of(p): some real position a of the term at p = 0
-// such that each other required term occurs at a + p.
-template <class Slots>
+// such that each other required term occurs at a + p. C <= kC planes.
+template <int kC, class Slots>
 __device__ inline bool chain_holds(const void* posT, bool pos16, int T, int C,
                                    int D, int d, const Slots& slot_of, int req) {
-  float anc[kCMax];
+  static_assert(kC >= 1 && kC <= kCMax, "plane bucket");
+  float anc[kC];
   uint32_t hit = 0;
   const size_t s0 = (size_t)slot_of(0);
 #pragma unroll
-  for (int c = 0; c < kCMax; ++c) {
+  for (int c = 0; c < kC; ++c) {
     anc[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + s0) * D + d) : kPosBig;
     if (anc[c] < kPosRealMax) hit |= 1u << c;
   }
   for (int m = req & ~1; m != 0 && hit != 0; m &= m - 1) {
     const int p = __ffs(m) - 1;
     const size_t sp = (size_t)slot_of(p);
-    float pos[kCMax];
+    float pos[kC];
 #pragma unroll
-    for (int c = 0; c < kCMax; ++c)
+    for (int c = 0; c < kC; ++c)
       pos[c] = c < C ? load_pos(posT, pos16, ((size_t)c * T + sp) * D + d)
                      : __int_as_float(0x7fffffff);  // NaN: equals nothing
     const float fp = (float)p;
     uint32_t found = 0;
 #pragma unroll
-    for (int c0 = 0; c0 < kCMax; ++c0) {
+    for (int c0 = 0; c0 < kC; ++c0) {
       const float target = anc[c0] + fp;
       bool m0 = false;
 #pragma unroll
-      for (int c = 0; c < kCMax; ++c) m0 |= (pos[c] == target);
+      for (int c = 0; c < kC; ++c) m0 |= (pos[c] == target);
       found |= (uint32_t)m0 << c0;
     }
     hit &= found;
@@ -123,42 +128,35 @@ struct Section {
   int bound;
 };
 
-// Check row k of this thread's doc in one section and fold a match into
-// the row's sums.
-template <bool kCounts, class Slots>
-__device__ inline void fold_match(const Section& sec, bool title, int k,
-                                  int req, int D, int d, int r0,
-                                  const Slots& slot_of, uint32_t* okbits,
-                                  float* acc_s, float* acc_c, float* tc) {
+// Check row k of this thread's doc in one section; on a match, add the
+// row's phrase-term weights (in phrase order) to its sum and call
+// on_match(k).
+template <int kC, class Slots, class OnMatch>
+__device__ inline void fold_match(const Section& sec, int k, int req, int D,
+                                  int d, const Slots& slot_of, float* acc_s,
+                                  OnMatch& on_match) {
   using probe::kDocs;
   for (int m = req; m != 0; m &= m - 1)
     if (slot_of(__ffs(m) - 1) < 0) return;  // a term is absent
-  if (!chain_holds(sec.posT, sec.pos16, sec.T, sec.C, D, d, slot_of, req)) return;
+  if (!chain_holds<kC>(sec.posT, sec.pos16, sec.T, sec.C, D, d, slot_of, req))
+    return;
   float sum = 0.f;
   for (int m = req; m != 0; m &= m - 1)
     sum += __ldg(sec.fwT + (size_t)slot_of(__ffs(m) - 1) * D + d);
   acc_s[k * kDocs] += sum;
-  uint32_t* ok = okbits + (k >> 5) * kDocs;
-  const uint32_t bit = 1u << (k & 31);
-  if (title) {
-    if (kCounts) acc_c[k * kDocs] += 1.f;
-    *ok |= bit;
-  } else if (kCounts && !(*ok & bit)) {
-    tc[(size_t)(r0 + k) * D + d] += 1.f;  // stored by this thread already
-  }
+  on_match(k);
 }
 
-// The phrase stage of one section for this thread's doc, after its sweep.
-// A rescan after an overflow keeps its slots where the log was.
-template <bool kCounts>
-__device__ inline void phrase_stage(const Section& sec, bool title, int D,
-                                    int d, int r0, int R, const int* s_term,
-                                    const int* s_pay, const uint32_t* s_filter,
-                                    int n,
-                                    const int* s_req,
-                                    const probe::PhraseLog& plog,
-                                    uint32_t* okbits, float* acc_s,
-                                    float* acc_c, float* tc) {
+// The phrase stage of one section for this thread's doc, after its sweep:
+// every phrase row of the tile is checked (fold_match). A rescan after an
+// overflow keeps its slots where the log was.
+template <int kC, class OnMatch>
+__device__ inline void phrase_matches(const Section& sec, int D, int d, int R,
+                                      const int* s_term, const int* s_pay,
+                                      const uint32_t* s_filter, int n,
+                                      const int* s_req,
+                                      const probe::PhraseLog& plog,
+                                      float* acc_s, OnMatch& on_match) {
   using namespace probe;
   if (!plog.overflow) {
     for (int i = 0; i < plog.n; ++i) {
@@ -167,9 +165,8 @@ __device__ inline void phrase_stage(const Section& sec, bool title, int D,
       const int k = q >> 16;
       const int req = s_req[k];
       if (req & 1)
-        fold_match<kCounts>(sec, title, k, req, D, d, r0,
-                            LogSlots{plog.log, plog.n, s_pay, k}, okbits, acc_s,
-                            acc_c, tc);
+        fold_match<kC>(sec, k, req, D, d, LogSlots{plog.log, plog.n, s_pay, k},
+                       acc_s, on_match);
     }
     return;
   }
@@ -187,9 +184,35 @@ __device__ inline void phrase_stage(const Section& sec, bool title, int D,
         if ((q & kPhraseFlag) && (q >> 16) == k) slots.set(q & 0x7fff, j);
       }
     }
-    fold_match<kCounts>(sec, title, k, req, D, d, r0, slots, okbits, acc_s,
-                        acc_c, tc);
+    fold_match<kC>(sec, k, req, D, d, slots, acc_s, on_match);
   }
+}
+
+// K2's phrase stage: all kCMax planes; a match in the title adds 1 to the
+// row's title count (kCounts) and sets its bit in okbits; a match in the
+// body adds 1 to the title count this thread stored, unless the title
+// matched.
+template <bool kCounts>
+__device__ inline void phrase_stage(const Section& sec, bool title, int D,
+                                    int d, int r0, int R, const int* s_term,
+                                    const int* s_pay, const uint32_t* s_filter,
+                                    int n, const int* s_req,
+                                    const probe::PhraseLog& plog,
+                                    uint32_t* okbits, float* acc_s,
+                                    float* acc_c, float* tc) {
+  using probe::kDocs;
+  auto count = [&](int k) {
+    uint32_t* ok = okbits + (k >> 5) * kDocs;
+    const uint32_t bit = 1u << (k & 31);
+    if (title) {
+      if (kCounts) acc_c[k * kDocs] += 1.f;
+      *ok |= bit;
+    } else if (kCounts && !(*ok & bit)) {
+      tc[(size_t)(r0 + k) * D + d] += 1.f;  // stored by this thread already
+    }
+  };
+  phrase_matches<kCMax>(sec, D, d, R, s_term, s_pay, s_filter, n, s_req, plog,
+                        acc_s, count);
 }
 
 }  // namespace ss

@@ -168,30 +168,31 @@ __device__ __forceinline__ void take_hit(int f, float w, int j,
 // the other. With kCompact each lane first marks the batch's slots that
 // pass, then walks its own marks, so the lanes of a warp take their k-th
 // hits together: K3 and K4, whose tables keep the hot terms (no hot
-// split), have some lane hitting in most slot rows of a warp.
+// split), have some lane hitting in most slot rows of a warp. kU slot ids
+// are in flight per thread (kUnroll unless the caller asks for more).
 template <bool kCounts, bool kPhrase, bool kHits = false, bool kCompact = false,
-          class CountT = float>
+          class CountT = float, int kU = kUnroll>
 __device__ inline void sweep(const int* __restrict__ ftT,
                              const float* __restrict__ fwT, int bound, int D,
                              int d, bool live, const int* s_term,
                              const int* s_pay, const uint32_t* s_filter, int n,
                              float* acc_s, CountT* acc_c, PhraseLog* plog,
                              unsigned long long* hits = nullptr) {
-  int cur[kUnroll];
+  int cur[kU];
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u)
+  for (int u = 0; u < kU; ++u)
     cur[u] = (live && u < bound) ? __ldg(ftT + (size_t)u * D + d) : -1;
-  for (int j0 = 0; j0 < bound; j0 += kUnroll) {
-    int nxt[kUnroll];
+  for (int j0 = 0; j0 < bound; j0 += kU) {
+    int nxt[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + kUnroll + u;
+    for (int u = 0; u < kU; ++u) {
+      const int j = j0 + kU + u;
       nxt[u] = (live && j < bound) ? __ldg(ftT + (size_t)j * D + d) : -1;
     }
     if (kCompact) {
       unsigned pass = 0u;  // pads and slots past bound never pass
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kU; ++u)
         if (j0 + u < bound && cur[u] >= 0 && filter_test(s_filter, cur[u]))
           pass |= 1u << u;
       while (pass != 0u) {
@@ -199,7 +200,7 @@ __device__ inline void sweep(const int* __restrict__ ftT,
         pass &= pass - 1;
         int f = cur[0];
 #pragma unroll
-        for (int k = 1; k < kUnroll; ++k)
+        for (int k = 1; k < kU; ++k)
           if (u == k) f = cur[k];
         const int j = j0 + u;
         take_hit<kCounts, kPhrase, kHits>(f, __ldg(fwT + (size_t)j * D + d), j,
@@ -207,11 +208,11 @@ __device__ inline void sweep(const int* __restrict__ ftT,
                                           hits);
       }
       // the rest are pad slots once a whole slot row is
-      if (__all_sync(kFull, cur[kUnroll - 1] < 0)) break;
+      if (__all_sync(kFull, cur[kU - 1] < 0)) break;
     } else {
       bool done = false;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const int j = j0 + u;
         const int f = cur[u];
         if (j >= bound || __all_sync(kFull, f < 0)) {  // the rest are pad slots
@@ -226,7 +227,7 @@ __device__ inline void sweep(const int* __restrict__ ftT,
       if (done) break;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
   }
 }
 

@@ -14,11 +14,13 @@ that prototype's function, not the production blend:
 
 `fused_topk` is the wrapper: on CUDA tensors it launches the hand-written
 kernels (csrc/fused_topk.cu: K4's probe table per row tile, a sweep and
-per-block top-k into partials, then a merge) or raises; on CPU tensors it
-runs `plain_fused_topk`, the plain PyTorch version (two plain section
-sweeps, the finalize above, ops/scoring.py's lowest-index top-k), which is
-also the on-card reference. Doc ids are positions of the index's doc axis
-(permuted ids under the doc-sorted layout), as the prototype returns them.
+per-block top-k into partials, which share each row's running k-th value
+as a threshold, then a merge) or raises; on CPU tensors it runs `plain_fused_topk`, the plain
+PyTorch version (two plain section sweeps, the finalize above,
+ops/scoring.py's lowest-index top-k), which is also the on-card reference.
+Doc ids are positions of the index's doc axis (permuted ids under the
+doc-sorted layout), as the prototype returns them. `chunks_per_block`
+plans the launch (host logic the CPU tests reach).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ _ARGTYPES = [
     ctypes.c_float, ctypes.c_float, ctypes.c_float,  # title weight, body weight, scale
     ctypes.c_int, ctypes.c_int,  # k_pad, chunks per block
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
+    ctypes.c_void_p,  # thresholds [B]
     ctypes.c_void_p, ctypes.c_void_p,  # partial values, ids
     ctypes.c_void_p, ctypes.c_void_p,  # out values, ids
     ctypes.c_void_p,  # stream
@@ -105,10 +108,9 @@ def plain_fused_topk(
     return vals, ids
 
 
-def chunks_per_block(d: int, b: int, rows: int, device) -> int:
+def chunks_per_block(d: int, b: int, rows: int, sms: int) -> int:
     """128-doc chunks each block sweeps: enough blocks for about two waves
     of 5 resident blocks per SM, and no more partials than that needs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = -(-d // DOCS) * -(-b // rows)
     return max(1, min(64, -(-blocks // (10 * sms))))
 
@@ -153,9 +155,11 @@ def fused_topk(
     rows = min(b, ROWS)
     n = rows * q
     tables = probe.scratch(b, rows, n, dev, sections=1)
-    chunks = chunks_per_block(d, b, rows, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = chunks_per_block(d, b, rows, sms)
     n_chunks = -(-d // DOCS)
     n_parts = -(-n_chunks // chunks)  # blocks along the doc axis
+    thr = torch.empty(b, dtype=torch.int32, device=dev)
     part_v = torch.empty((n_parts, b, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_parts, b, k_pad), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k_pad), dtype=torch.float32, device=dev)
@@ -169,7 +173,7 @@ def fused_topk(
             mag_title.data_ptr(), mag_body.data_ptr(),
             term_ids.data_ptr(), b, q, query_len.data_ptr(), W_TITLE, W_BODY, SCORE_SCALE,
             k_pad, chunks,
-            tables.data_ptr(), rows, n, part_v.data_ptr(), part_i.data_ptr(),
+            tables.data_ptr(), rows, n, thr.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
             vals.data_ptr(), ids.data_ptr(), stream,
         )
     if err != 0:

@@ -14,11 +14,15 @@ so K1's keyword scores plus (add_t, add_b), with the flag as candidacy,
 are what K2 computes for those rows.
 
 `phrase_delta` is the wrapper: on CUDA tensors it launches the hand-written
-kernel (csrc/phrase_delta.cu: a probe table of the phrase entries per row
-tile, then K2's sweep and phrase stage, csrc/phrase.cuh) or raises; on CPU
-tensors it runs mixed.plain_phrase_delta, the plain PyTorch version (the
-phrase half of plain_mixed_scores), which is also the on-card reference.
-The position planes are int16 (quantize_posT) or f32, as K2 takes them.
+kernels (csrc/phrase_delta.cu: a partition of the batch with its phrase
+rows first, a probe table of the phrase entries per tile of phrase rows,
+then K2's sweep and phrase stage, csrc/phrase.cuh, compiled for the
+index's bucket of position planes, and zeros for the other rows) or
+raises; on CPU tensors it runs mixed.plain_phrase_delta, the plain PyTorch
+version (the phrase half of plain_mixed_scores), which is also the on-card
+reference. The position planes are int16 (quantize_posT) or f32, as K2
+takes them. `plain_phrase_rows`, `plane_bucket` and `tile_rows` are the
+host-side plan (the CPU tests reach them).
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ _ARGTYPES = [
     ctypes.c_int,  # D
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # title posT, Ct, int16?
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # body posT, Cb, int16?
-    ctypes.c_void_p, ctypes.c_int,  # all-pad keyword column [B, 1], B
+    ctypes.c_int, ctypes.c_int,  # plane bucket, B
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
+    ctypes.c_void_p,  # partition scratch (row map, ph_ids, ph_valid, n_ph, pad column)
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # add_t, add_b, flag
     ctypes.c_void_p,  # stream
@@ -62,13 +67,67 @@ def library():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        rows = built.lib.ss_phrase_rows
+        rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p]
+        rows.restype = ctypes.c_int
     return built
 
 
+#: plane counts the chain check is compiled for (csrc/phrase_delta.cu)
+PLANE_BUCKETS = (4, 8, 16, 32)
+
+
+def plane_bucket(c: int) -> int:
+    """The smallest compiled plane count that holds c planes; raises past
+    the largest (C_MAX)."""
+    for bucket in PLANE_BUCKETS:
+        if 1 <= c <= bucket:
+            return bucket
+    raise ValueError(f"C={c} outside the kernel's plane buckets {PLANE_BUCKETS}")
+
+
+def tile_rows(b: int) -> int:
+    """Phrase rows per tile: 16 for a batch of at most 16 rows, else 32
+    (a tile's sums, table and log take ~33 KB at P=16: several blocks per
+    SM, and the benchmark mix's 32 phrase rows of 128 fit one tile)."""
+    return 16 if b <= 16 else 32
+
+
+def plain_phrase_rows(ph_ids: torch.Tensor, ph_valid: torch.Tensor):
+    """The batch's partition as csrc/phrase_delta.cu phrase_rows_kernel
+    makes it -> (row_map int32 [B], ph_ids [B, P], ph_valid [B, P], n_ph):
+    positions [0, n_ph) hold the rows whose slot 0 is valid (the phrase
+    rows), in batch order, then the other rows in batch order, whose slots
+    are all made invalid."""
+    has = ph_valid[:, 0] > 0
+    row_map = torch.cat((has.nonzero().flatten(), (~has).nonzero().flatten())).to(torch.int32)
+    ids = ph_ids[row_map.long()]
+    valid = torch.where(has[row_map.long()][:, None], ph_valid[row_map.long()], 0.0)
+    return row_map, ids, valid, int(has.sum())
+
+
+def cuda_phrase_rows(ph_ids: torch.Tensor, ph_valid: torch.Tensor):
+    """The partition the kernel makes on the card (the same tuple as
+    plain_phrase_rows)."""
+    b, p = ph_ids.shape
+    buf = torch.empty(b * (1 + 2 * p) + 1, dtype=torch.int32, device=ph_ids.device)
+    with torch.cuda.device(ph_ids.device):
+        err = library().lib.ss_phrase_rows(
+            ph_ids.data_ptr(), ph_valid.data_ptr(), b, p, buf.data_ptr(),
+            torch.cuda.current_stream(ph_ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"phrase-row partition launch failed (cudaError {err})")
+    return (buf[:b], buf[b : b + b * p].view(b, p),
+            buf[b + b * p : b + 2 * b * p].view(torch.float32).view(b, p),
+            int(buf[-1]))
+
+
 def pad_column(b: int, device) -> torch.Tensor:
-    """The [b, 1] keyword column K6's table build reads: all TERM_PAD, so
-    its tables hold the phrase entries only (probe.cuda_tables /
-    plain_tables with this column, sections=1, are K6's tables)."""
+    """The [b, 1] keyword column K6's table build reads (the kernel writes
+    its own): all TERM_PAD, so its tables hold the phrase entries only
+    (probe.cuda_tables / plain_tables with this column, sections=1, over
+    plain_phrase_rows' arrays, are K6's tables)."""
     return torch.full((b, 1), probe.TERM_PAD, dtype=torch.int32, device=device)
 
 
@@ -82,9 +141,9 @@ def phrase_delta(
 ):
     """-> (add_t, add_b, flag | None), each f32 [B, D]. pn must count each
     row's valid slots (they come first); the kernel reads them from
-    ph_valid, and a row tile with no phrase row stores zeros without a
-    sweep. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    ph_valid: a row whose slot 0 is valid is a phrase row, and the other
+    rows' outputs are zeros, stored without a sweep. CPU tensors take the
+    plain version; CUDA tensors launch the kernels."""
     if ph_ids.device.type == "cpu":
         return plain_phrase_delta(
             title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
@@ -115,10 +174,12 @@ def phrase_delta(
     if max(tt, tb) > 0x7FFF:
         raise ValueError(f"T={max(tt, tb)} past the kernel's slot log (32767)")
     _int32(pn, "pn", b, dev)
-    rows = probe.row_tile(b)
+    ct, cb = title_posT.shape[0] // tt, body_posT.shape[0] // tb
+    bucket = plane_bucket(max(ct, cb))
+    rows = tile_rows(b)
     n = rows * (1 + p)
     tables = probe.scratch(b, rows, n, dev, sections=1)
-    tq_pad = pad_column(b, dev)
+    part = torch.empty(b * (2 + 2 * p) + 1, dtype=torch.int32, device=dev)
     add_t = torch.empty((b, d), dtype=torch.float32, device=dev)
     add_b = torch.empty_like(add_t)
     flag = torch.empty_like(add_t) if emit_flag else None
@@ -128,12 +189,10 @@ def phrase_delta(
         err = lib.ss_phrase_delta(
             title_ftT.data_ptr(), title_fwT.data_ptr(), tt,
             body_ftT.data_ptr(), body_fwT.data_ptr(), tb, d,
-            title_posT.data_ptr(), title_posT.shape[0] // tt,
-            int(title_posT.dtype == torch.int16),
-            body_posT.data_ptr(), body_posT.shape[0] // tb,
-            int(body_posT.dtype == torch.int16),
-            tq_pad.data_ptr(), b, ph_ids.data_ptr(), ph_valid.data_ptr(), p,
-            tables.data_ptr(), rows, n,
+            title_posT.data_ptr(), ct, int(title_posT.dtype == torch.int16),
+            body_posT.data_ptr(), cb, int(body_posT.dtype == torch.int16), bucket,
+            b, ph_ids.data_ptr(), ph_valid.data_ptr(), p,
+            part.data_ptr(), tables.data_ptr(), rows, n,
             add_t.data_ptr(), add_b.data_ptr(), None if flag is None else flag.data_ptr(),
             stream,
         )

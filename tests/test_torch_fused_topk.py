@@ -163,3 +163,11 @@ def test_torch_fused2_probe_runs_on_cpu():
                                    "--batch", "16", "--reps", "1"])
     assert res["ok"] and res["matches_prod"] and res["vs_plain"]["ok"]
     assert res["launches"] == {"K1": 0, "K5": 0}  # the CPU route launches nothing
+
+
+def test_fused_topk_launch_plan():
+    """The sweep's grid: about two waves of 5 resident blocks per SM,
+    fewer chunks per block at small sizes, at most 64."""
+    assert k5.chunks_per_block(100_352, 256, 32, 132) == 5  # 157 blocks per tile
+    assert k5.chunks_per_block(100_352, 16, 16, 132) == 1
+    assert k5.chunks_per_block(100_000_000, 256, 32, 132) == 64

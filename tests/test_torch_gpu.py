@@ -414,6 +414,90 @@ def test_phrase_delta_plus_keywords_is_the_mixed_kernel(cuda, corpus, indexes):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b", [1, 31, 33, 256, 257])
+def test_fused_topk_kernel_batch_sizes(cuda, corpus, indexes, b):
+    """Batches around the row tile (32) and the benchmark's B=256, with 20
+    equal finals planted in docs spread over the doc axis, so blocks that
+    own different doc ranges each hold some of the tie, and more of them
+    than k_pad: within check.compare_topk's bar of the plain version, and
+    the tie row exactly equal to it, cut by ascending doc id."""
+    idx = indexes[False]
+    args = check.topk_case(idx, max(b, 4), seed=b, df=_df(corpus[1]))
+    if b == 1:  # the tie row alone
+        args = (*args[:6], args[6][2:3].contiguous(), args[7][2:3].contiguous())
+    got = check.run_k5(args)
+    want = check.run_k5(args, plain=True)
+    rep = check.compare_topk(got, want)
+    assert rep["ok"], rep
+    tie = 0 if b == 1 else 2
+    assert torch.equal(got[0][tie], want[0][tie]) and torch.equal(got[1][tie], want[1][tie])
+    assert bool((want[0][tie] == want[0][tie, 0]).all())  # the cut falls in the tie
+    assert bool((want[1][tie][1:] > want[1][tie][:-1]).all())  # by ascending id
+
+
+def _scattered(batch: dict, seed: int) -> dict:
+    """The rows of a mixed batch in a seeded order (phrase rows no longer
+    first)."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(batch["ph_ids"].shape[0]))
+    return {k: (v[perm.to(v.device)].contiguous() if isinstance(v, torch.Tensor) else v)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("bp", [1, 16, 17, 64, 65, 128])
+def test_phrase_delta_kernel_scattered_phrase_rows(cuda, corpus, indexes, bp):
+    """K6 on the first bp rows of a B=128 mixed batch whose rows are in a
+    seeded order, so phrase rows sit anywhere (the kernel's partition puts
+    them first), with the flag: exact against the plain version, and the
+    partition equal to plain_phrase_rows."""
+    idx = indexes[True]
+    batch = _scattered(check.to_device(
+        check.mixed_batch(idx, 128, 4, 16, seed=11, df=_df(corpus[1]), snap=corpus[1]), cuda),
+        seed=bp)
+    rep = check.compare_delta(check.run_k6(idx, batch, True, bp),
+                              check.run_k6(idx, batch, True, bp, plain=True))
+    assert rep["ok"], rep
+    ph_ids, ph_valid = batch["ph_ids"][:bp].contiguous(), batch["ph_valid"][:bp].contiguous()
+    got, want = k6.cuda_phrase_rows(ph_ids, ph_valid), k6.plain_phrase_rows(ph_ids, ph_valid)
+    assert got[3] == want[3] and all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    if bp >= 16:
+        assert 0 < got[3] < bp and rep["matched"] > 0
+
+
+def _with_planes(index, c: int, pos16: bool):
+    """The index with c position planes per section: the first c of its
+    own, then copies of its first plane (a repeated position changes no
+    chain); int16 or their f32 dequantization."""
+    out = {}
+    for s in ("title", "body"):
+        sec = getattr(index, s)
+        t = sec.fwd.ftT.shape[0]
+        pos = sec.posT.view(-1, t, sec.posT.shape[1])
+        planes = [pos[i if i < pos.shape[0] else 0] for i in range(c)]
+        pos = torch.stack(planes).reshape(c * t, -1).contiguous()
+        out[s] = dataclasses.replace(sec, posT=pos if pos16 else k2.deq_posT(pos).contiguous())
+    return dataclasses.replace(index, **out)
+
+
+@pytest.mark.parametrize("flag", [True, False])
+@pytest.mark.parametrize("pos16", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 7, 8, 9, 32])
+def test_phrase_delta_kernel_plane_buckets(cuda, corpus, indexes, c, pos16, flag):
+    """K6 at plane counts on each side of every compiled bucket (4, 8, 16,
+    32), int16 and f32 planes, with and without the flag, on the B=128
+    mixed batch and on log_full at B=16 (docs whose phrase hits overflow
+    the log: the rescan): exact against the plain version."""
+    idx = _with_planes(indexes[False], c, pos16)
+    assert k6.plane_bucket(c) >= c
+    for batch in (
+        check.mixed_batch(idx, 128, 4, 16, seed=c, df=_df(corpus[1]), snap=corpus[1]),
+        check.adversarial_batch(idx, "log_full", seed=8, df=_df(corpus[1]), snap=corpus[1], b=16),
+    ):
+        batch = check.to_device(batch, cuda)
+        rep = check.compare_delta(check.run_k6(idx, batch, flag),
+                                  check.run_k6(idx, batch, flag, plain=True))
+        assert rep["ok"], (c, rep)
+
+
 def test_probe_wrappers_reject_bad_inputs(cuda, indexes):
     idx = indexes[False]
     b = 8
@@ -431,6 +515,10 @@ def test_probe_wrappers_reject_bad_inputs(cuda, indexes):
         k6.phrase_delta(*fwd, ph, ph.float(), ph[:, 0])
     with pytest.raises(ValueError):
         k6.phrase_delta(*fwd, ph[:, :4], ph[:, :4].float(), ph[:4, 0])
+    wide = _with_planes(idx, k2.C_MAX + 1, True)  # planes past the largest bucket
+    with pytest.raises(ValueError):
+        k6.phrase_delta(*fwd[:4], wide.title.posT, wide.body.posT, ph[:, :4],
+                        ph[:, :4].float(), ph[:, 0])
 
 
 def _same_up_to_ties(got, want) -> bool:

@@ -150,3 +150,55 @@ def test_torch_phrase_delta_probe_runs_on_cpu(tmp_path, monkeypatch):
     assert res["phrase_rows"] > 0 and res["launches"] == {"K1": 0, "K2": 0, "K6": 0}
     splits = [r for k, r in res["runs"].items() if "split" in k]
     assert len(splits) == 2 and all(r["exact"] for r in splits)
+
+
+def test_phrase_delta_plane_bucket_and_tile_rows():
+    """The chain check's compiled plane counts: the smallest bucket that
+    holds C, none past 32; 16-row tiles for batches of at most 16 rows,
+    32 otherwise."""
+    assert [k6.plane_bucket(c) for c in (1, 3, 4, 5, 7, 8, 9, 16, 17, 32)] == [
+        4, 4, 4, 8, 8, 8, 16, 16, 32, 32]
+    for c in (0, 33):
+        with pytest.raises(ValueError):
+            k6.plane_bucket(c)
+    assert [k6.tile_rows(b) for b in (1, 16, 17, 128)] == [16, 16, 32, 32]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phrase_delta_partition(bench_snap, seed):
+    """plain_phrase_rows (the kernel's partition): phrase rows first, then
+    the others, each in batch order, the others' slots invalid; the plain
+    phrase delta of the partitioned batch, put back in batch order, is the
+    batch's own, exactly; and the tables built over it (the build K6's
+    entry point launches) hold entries of phrase rows only."""
+    from spaghettisearch_tpu_torch.ops.kernels import probe
+
+    _, tdx = _indexes(bench_snap, False)
+    df = np.diff(bench_snap.body.post_offsets).astype(np.float64)
+    batch = check.to_device(check.mixed_batch(tdx, 48, 4, 16, seed=seed, df=df, snap=bench_snap),
+                            "cpu")
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(48))
+    ph_ids, ph_valid = batch["ph_ids"][perm], batch["ph_valid"][perm]
+    ph_valid[5, 0] = 0.0  # a later slot valid, slot 0 not: no phrase
+    ph_valid[5, 1] = 1.0
+    row_map, ids, valid, n = k6.plain_phrase_rows(ph_ids, ph_valid)
+    has = ph_valid[:, 0] > 0
+    assert n == int(has.sum()) and 0 < n < 48
+    assert sorted(row_map.tolist()) == list(range(48))
+    assert bool(has[row_map[:n].long()].all()) and not bool(has[row_map[n:].long()].any())
+    assert bool((row_map[:n].diff() > 0).all()) and bool((row_map[n:].diff() > 0).all())
+    assert not bool(valid[n:].any())
+    t, bd = tdx.title, tdx.body
+    fwd = (t.fwd.ftT, t.fwd.fwT, bd.fwd.ftT, bd.fwd.fwT, t.posT, bd.posT)
+    want = k2.plain_phrase_delta(*fwd, ph_ids, ph_valid, emit_flag=True)
+    got = k2.plain_phrase_delta(*fwd, ids, valid, emit_flag=True)
+    inv = torch.argsort(row_map.long())
+    for g, w in zip(got, want):
+        assert torch.equal(g[inv], w)
+    rows = k6.tile_rows(48)
+    terms, pay = probe.build_tables(k6.pad_column(48, "cpu"), torch.ones((1, 48), dtype=torch.int32),
+                                    rows, ids, valid)
+    real = terms[0] != probe.TERM_PAD
+    tile = torch.arange(terms.shape[1])[:, None].expand_as(real)
+    pos = tile * rows + (pay[0] >> 16)
+    assert bool((pos[real] < n).all())
