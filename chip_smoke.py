@@ -68,8 +68,8 @@ Phases (any failure raises and the script exits non-zero):
      pagerank_power (its two categories) and pagerank_personalized (16
      seeded categories), float32 on the card twice (bit-identical) and
      float64 on the CPU once (the card within rtol 1e-5, atol 1e-9);
-     iterations, ms per build (CUDA events) and the bytes bound of one
-     iteration;
+     iterations on the card beside float32's on the CPU (the stop point),
+     ms per build (CUDA events) and the bytes bound of one iteration;
  12. the doc-sharded mesh (parallel/sharded.py, retrieval/sharded_engine.py)
      with its MESH_SHARDS=4 shards on cuda:{s % device_count} (all four on
      one card here: the per-shard kernels and the merge, no cross-GPU
@@ -147,7 +147,19 @@ Phases (any failure raises and the script exits non-zero):
      torch_tbound_probe, torch_membership_tune), started with phase 16's
      modes, each in a process of its own, each required to pass its
      original's exactness check; the fused2 and phrase-delta probes' K5
-     and K6 launches are those kernels' launches on their paths.
+     and K6 launches are those kernels' launches on their paths;
+ 18. the crash soak (inside phase 16's window, started with its modes):
+     experiments/torch_crash_recovery.py --phase all in a process of its
+     own on a copy of phase 3's corpus: a bulk indexer SIGKILLed 0.35 s
+     into its third flush cycle (committed flushes intact, the
+     post-recovery append read back), then the port's server SIGKILLed
+     20 s after POST /refresh (required: killed_mid_refresh, the stale
+     hydration sidecar detected and rebuilt with the recovered store's
+     fingerprint, no temporary sidecar loaded) and restarted on the card;
+     the first 64 queries of the serving phase's mix go to the restarted
+     server, and a QueryEngine on the card over the same recovered store
+     and snapshot ranks them with the kernels (K1 and K2 launched) and on
+     the plain path: every answer equal to both.
 The wall seconds of each phase are printed before the kernels' line.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
@@ -732,6 +744,9 @@ def pagerank_phase(db, seed: int, smi: str) -> dict:
         r1, it1, ms1 = pagerank_run(model, "cuda", torch.float32)
         r2, it2, ms2 = pagerank_run(model, "cuda", torch.float32)
         r64, it64, ms64 = pagerank_run(model, "cpu", torch.float64)
+        # the port's float32 stop on the CPU, beside the card's: the float32
+        # stop depends on the order of the sums (tests/test_torch_pagerank.py)
+        _, it32, ms32 = pagerank_run(model, "cpu", torch.float32)
         if not (np.array_equal(r1.view(np.uint32), r2.view(np.uint32)) and it1 == it2):
             raise RuntimeError(f"pagerank_{model}: two runs on the card differ")
         if not np.allclose(r1, r64, rtol=PAGERANK_RTOL, atol=PAGERANK_ATOL):
@@ -742,11 +757,13 @@ def pagerank_phase(db, seed: int, smi: str) -> dict:
         rel = float(np.max(np.abs(r1 - r64) / np.maximum(np.abs(r64), 1e-30)))
         pagerank_report[model] = {
             "nodes": n_nodes, "edges": n_edges, "categories": c, "iterations": it1,
-            "iterations_f64": it64, "ms": [ms1, ms2], "ms_per_iter": [ms1 / it1, ms2 / it2],
+            "iterations_f64": it64, "iterations_cpu_f32": it32, "cpu_f32_ms": ms32,
+            "ms": [ms1, ms2], "ms_per_iter": [ms1 / it1, ms2 / it2],
             "bound_ms_per_iter": bound, "cpu_f64_ms": ms64, "max_rel_err_vs_f64": rel,
         }
         say(f"# pagerank_{model}: {n_nodes} nodes, {n_edges} edges, C={c}: {it1} iterations "
-            f"(f64: {it64}), {ms1:.3f} / {ms2:.3f} ms per build on the card "
+            f"on the card (float32 on the CPU: {it32}; f64: {it64}), {ms1:.3f} / {ms2:.3f} ms "
+            f"per build on the card "
             f"({ms1 / it1:.4f} ms per iteration, bound {bound:.4f} ms by bytes), two runs "
             f"bit-identical, within rtol {PAGERANK_RTOL} / atol {PAGERANK_ATOL} of float64 on the CPU "
             f"({ms64:.1f} ms; max rel err {rel:.3g}) ({smi})")
@@ -1453,7 +1470,7 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
     say(f"# scale1m: index {r['index_device_bytes']} device bytes, max_memory_allocated "
         f"{r['max_memory_allocated']} B, top-10 of a B=256 batch equal to the plain path ({smi})")
     r = reps["serve"] = finish(start("serve", "serve", *pages, "--routeMix"))
-    if (r["non_200"] or not r["contract"] or not r["routes"]
+    if (r["non_200"] or r["protocol_errors"] or not r["contract"] or not r["routes"]
             or set(r["routes"]) != {"wordlist", "get_query", "post_query"}):
         raise RuntimeError(f"serve --routeMix: {r}")
     say(f"# serve --routeMix: {r['value']} req/s, p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
@@ -1525,6 +1542,126 @@ class Probes:
         finally:
             self.kill()
         return out
+
+
+#: phase 18: the crash soak's queries to its restarted server, and the time
+#: limit of each of its waits
+CRASH_QUERIES = 64
+CRASH_TIMEOUT_S = 900
+
+
+class Crash:
+    """Phase 18's crash soak (experiments/torch_crash_recovery.py --phase
+    all) in a process of its own, its output in build/crash.out and .err;
+    its restarted server holds until build/crash.go exists."""
+
+    def __init__(self, seed: int) -> None:
+        self.go = os.path.join(HERE, "build", "crash.go")
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(self.go)
+        self.log = os.path.join(HERE, "build", "crash")
+        self.work = os.path.join(HERE, "build", "crash", f"corpus{PAGES // 1000}k")
+        cmd = [sys.executable, os.path.join(HERE, "experiments", "torch_crash_recovery.py"),
+               "--phase", "all", "--pages", str(PAGES), "--seed", str(seed), "--device", "cuda",
+               "--work", self.work, "--holdFile", self.go]
+        with open(self.log + ".out", "wb") as out, open(self.log + ".err", "wb") as err:
+            self.proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
+                                         start_new_session=True)
+        self.t0 = time.perf_counter()
+
+    def kill(self) -> None:
+        import signal
+
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+    def _lines(self) -> list[str]:
+        with open(self.log + ".out", errors="replace") as f:
+            return f.read().splitlines()
+
+    def _failed(self) -> RuntimeError:
+        with open(self.log + ".err", errors="replace") as f:
+            err = f.read()
+        return RuntimeError(f"the crash soak exited {self.proc.returncode}:\n"
+                            f"{chr(10).join(self._lines()[-20:])}\n{err[-4000:]}")
+
+    def restarted(self) -> str:
+        """Wait for the restarted server. -> its base URL."""
+        deadline = time.monotonic() + CRASH_TIMEOUT_S
+        while time.monotonic() < deadline:
+            m = next((re.search(r"holding at (\S+) until", line) for line in self._lines()
+                      if line.startswith("restarted server holding")), None)
+            if m:
+                return m.group(1)
+            if self.proc.poll() is not None:
+                raise self._failed()
+            time.sleep(1)
+        raise RuntimeError(f"the crash soak's server did not restart in {CRASH_TIMEOUT_S}s")
+
+    def finish(self, smi: str) -> list[dict]:
+        """Release the restarted server and wait for the soak. -> its phases."""
+        with open(self.go, "w"):
+            pass
+        try:
+            self.proc.wait(timeout=CRASH_TIMEOUT_S)
+        finally:
+            self.kill()
+        if self.proc.returncode != 0:
+            raise self._failed()
+        lines = self._lines()
+        for line in lines[:-1]:
+            say(f"# crash: {line}")
+        say(f"# crash soak ended by {time.perf_counter() - self.t0:.1f}s ({smi})")
+        return json.loads(lines[-1])["crash_recovery"]
+
+
+def crash_phase(crash: Crash, queries: list[str], smi: str, phase_launches: dict) -> None:
+    """Phase 18 (see the module docstring): the restarted server's answers
+    against the kernel path and the plain path on the recovered store."""
+    import torch
+
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    t0 = time.perf_counter()
+    base = crash.restarted()
+    qs = list(dict.fromkeys(queries[:CRASH_QUERIES]))
+    results, wall = send_jobs(base, [("post", q) for q in qs], CLIENTS)
+    say(f"# crash: the restarted server answered {len(qs)} POST /query in {wall:.3f}s")
+    a, b = crash.finish(smi)
+    if not (a["phase"] == "a" and a["post_recovery_append"] and a["committed_pages_ok"]
+            == 50 * a["flushes_before_kill"] >= 100
+            and a["docs"] >= a["docs_before"] + a["committed_pages_ok"]):
+        raise RuntimeError(f"crash phase A: {a}")
+    if not (b["phase"] == "b" and b["killed_mid_refresh"] and b["sidecar_stale_detected"]
+            and b["sidecar_rebuilt"] and not b["tmp_sidecar_loaded"]):
+        raise RuntimeError(f"crash phase B: {b}")
+    db = Database(os.path.join(crash.work, "store"))
+    try:
+        eng = QueryEngine(db, snapshot=load_snapshot(os.path.join(crash.work, "snapshot")),
+                          device="cuda")
+        kw = [q for q in qs if '"' not in q]
+        ph = [q for q in qs if '"' in q]
+        reset_launches()
+        got = dict(zip(kw + ph, eng.query_batch(kw) + eng.query_batch(ph)))
+        torch.cuda.synchronize()
+        phase_launches["crash_restart"] = launches()
+        if min(phase_launches["crash_restart"][k] for k in ("membership", "mixed")) == 0:
+            raise RuntimeError(f"crash restart: K1 or K2 never launched: {phase_launches}")
+        with plain_kernels():
+            ref = dict(zip(kw + ph, eng.query_batch(kw) + eng.query_batch(ph)))
+    finally:
+        db.close()
+    http = [results[("post", q)][1] for q in qs]
+    n_hits = check_ranked(qs, http, [got[q] for q in qs], "crash restart (kernels)")
+    check_ranked(qs, http, [ref[q] for q in qs], "crash restart (plain path)")
+    say(f"# crash: {len(qs)} answers of the restarted server ({n_hits} results) equal the "
+        f"kernel path and the plain path on the recovered store ({len(kw)} keyword, {len(ph)} "
+        f"phrase queries; launches {phase_launches['crash_restart']}); phase A "
+        f"{json.dumps(a)}; phase B {json.dumps(b)}; {time.perf_counter() - t0:.1f}s in this "
+        f"process ({smi})")
 
 
 def main() -> int:
@@ -2009,9 +2146,19 @@ def main() -> int:
                            f"{SOAK_SHARDED_DOCS} docs: {rep}")
     say(f"# soak_sharded: {time.perf_counter() - t0:.1f}s from its start file to its end")
     lap("15 the sharded soak's load")
-    # 16. the port's bench modes, each in a process of its own
+    # 16. the port's bench modes, each in a process of its own, with the
+    # probes (17) and the crash soak (18) beside them
     probes = Probes(args.seed)
     atexit.register(probes.kill)
+    crash = Crash(args.seed)
+    atexit.register(crash.kill)
+    crash_s = [0.0]
+
+    def crash_18() -> None:
+        t0 = time.perf_counter()
+        crash_phase(crash, queries, smi, phase_launches)
+        crash_s[0] = time.perf_counter() - crash.t0
+        say(f"# phase 18: {time.perf_counter() - t0:.1f}s in this process after phase 17")
     probe_s = [0.0]
 
     def probes_phase() -> None:
@@ -2056,9 +2203,10 @@ def main() -> int:
             f"waiting for the probe processes")
 
     bench_phase(smi, phase_launches, args.seed,
-                beside=(adversarial, mesh["variants"], probes_phase))
+                beside=(adversarial, mesh["variants"], probes_phase, crash_18))
     lap("16 bench")
     phase_s["17 probes (inside 16)"] = round(probe_s[0], 1)
+    phase_s["18 crash soak (inside 16)"] = round(crash_s[0], 1)
     say(f"# launches per path: {json.dumps(phase_launches)}")
     say(f"# phase seconds: {json.dumps(phase_s)}")
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")

@@ -896,10 +896,10 @@ def bench_serve(
     with DocInfo, parents/children, keywords and summaries. A 15 s warm
     period, then a 20 s window; p50/p99 per request and per route, and the
     micro-batcher's spans from /stats."""
-    import selectors
-    import socket
     import urllib.request
     from urllib.parse import quote as _quote
+
+    from .serve.loadclient import LoadClient, post_query
 
     root = ensure_bench_corpus(n_pages, device=device, seed=seed)
     db, snap = load_bench_corpus(root)
@@ -946,70 +946,8 @@ def bench_serve(
                 )
                 kinds.append("get_query")
             else:
-                body = json.dumps({"query": q}).encode()
-                payloads.append(
-                    b"POST /query HTTP/1.1\r\nHost: b\r\n"
-                    b"Content-Type: application/json\r\nContent-Length: "
-                    + str(len(body)).encode() + b"\r\n\r\n" + body
-                )
+                payloads.append(post_query(q))
                 kinds.append("post_query")
-
-        sel = selectors.DefaultSelector()
-        route_lat: dict[str, list[float]] = {"wordlist": [], "get_query": [], "post_query": []}
-        bad_status = [0]
-
-        class Conn:
-            __slots__ = ("sock", "buf", "need", "qi", "t0", "lat", "done", "kind", "status")
-
-            def __init__(self, qi: int) -> None:
-                self.sock = socket.create_connection(("127.0.0.1", port))
-                self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-                # blocking sockets: the selector gates recv (>= 1 byte
-                # ready) and the small request always fits the send buffer
-                self.buf = b""
-                self.need = -1
-                self.qi = qi
-                self.lat: list[float] = []
-                self.done = 0
-                sel.register(self.sock, selectors.EVENT_READ, self)
-                self.send()
-
-            def send(self) -> None:
-                self.t0 = time.perf_counter()
-                self.kind = kinds[self.qi % len(payloads)]
-                self.sock.sendall(payloads[self.qi % len(payloads)])
-                self.qi += n_conns
-
-            def feed(self) -> bool:
-                data = self.sock.recv(1 << 18)
-                if not data:
-                    return False
-                self.buf += data
-                while True:
-                    if self.need < 0:
-                        he = self.buf.find(b"\r\n\r\n")
-                        if he < 0:
-                            return True
-                        hdr = self.buf[:he].lower()
-                        self.status = hdr[9:12]
-                        cl = hdr.find(b"content-length:")
-                        # Content-Length may be the last header: no \r
-                        # follows it inside hdr
-                        end = hdr.find(b"\r", cl)
-                        if end < 0:
-                            end = len(hdr)
-                        self.need = he + 4 + int(hdr[cl + 15 : end])
-                    if len(self.buf) < self.need:
-                        return True
-                    self.buf = self.buf[self.need:]
-                    self.need = -1
-                    dt = time.perf_counter() - self.t0
-                    self.lat.append(dt)
-                    bad_status[0] += self.status != b"200"
-                    if route_mix:
-                        route_lat[self.kind].append(dt)
-                    self.done += 1
-                    self.send()
 
         # the contract on one request before the load
         req = urllib.request.Request(
@@ -1025,29 +963,14 @@ def bench_serve(
         }:
             raise RuntimeError("serve bench: response does not carry the full contract")
 
-        conns = [Conn(i) for i in range(n_conns)]
-
-        def pump(until: float) -> None:
-            while time.monotonic() < until:
-                for key, _ in sel.select(timeout=0.2):
-                    if key.data.feed() is False:
-                        raise RuntimeError("server closed a connection")
-
-        pump(time.monotonic() + warm_s)  # warm the record and summary caches
-        for c in conns:
-            c.lat.clear()
-            c.done = 0
-        for v in route_lat.values():
-            v.clear()
-        bad_status[0] = 0
-        t0 = time.perf_counter()
-        pump(time.monotonic() + duration_s)
-        dt = time.perf_counter() - t0
-        total = sum(c.done for c in conns)
-        lats = np.sort(np.concatenate([np.asarray(c.lat) for c in conns]))
-        for c in conns:
-            sel.unregister(c.sock)
-            c.sock.close()
+        client = LoadClient(port, payloads, n_conns, kinds)
+        client.pump(warm_s)  # warm the record and summary caches
+        client.reset()
+        dt = client.pump(duration_s)
+        total = client.done
+        lats = np.asarray(client.all_latencies())
+        route_lat = client.latencies
+        client.close()
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as resp:
             stats = json.loads(resp.read())
         mb = stats.get("microbatcher") or {}
@@ -1058,7 +981,10 @@ def bench_serve(
             "p50_ms": round(1e3 * float(lats[len(lats) // 2]), 2) if len(lats) else None,
             "p99_ms": round(1e3 * float(lats[int(len(lats) * 0.99)]), 2) if len(lats) else None,
             "requests": total,
-            "non_200": bad_status[0],
+            "non_200": client.non_200,
+            # answers without a Content-Length (unframeable; each closed and
+            # replaced its connection)
+            "protocol_errors": client.protocol_errors,
             "contract": True,
             "connections": n_conns,
             "big_batch": big_batch,

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterator
 
 from .docinfo import DocInfo
+from .durable_kv import cut_torn_line
 from .kv import KVBackend, LogBackend, MemBackend
 
 
@@ -291,6 +292,8 @@ class _DocsPack:
         try:
             with open(self.idx_path, encoding="utf-8") as f:
                 for line in f:
+                    if not line.endswith("\n"):
+                        continue  # torn tail: its writer died mid-line
                     parts = line.split()
                     if len(parts) != 3:
                         continue  # torn index tail
@@ -321,6 +324,7 @@ class _DocsPack:
                     f"docs pack {self.pack_path} is already open for append "
                     "by another process (single-writer log)"
                 ) from None
+            cut_torn_line(self.idx_path)  # never glue a line onto a torn one
             self._iw = open(self.idx_path, "a", encoding="utf-8")
         off = self._w.tell()
         self._w.write(raw)
@@ -385,7 +389,7 @@ class Database:
         if not use_mem:
             if backend in ("auto", "native"):
                 try:
-                    from .native_kv import NativeBackend, native_available
+                    from .durable_kv import NativeBackend, native_available
 
                     if native_available():
                         make_kv = NativeBackend

@@ -43,11 +43,15 @@ def _port_modules() -> list[str]:
     )
 
 
-#: scripts beside the package that import only the port: chip_smoke.py and
-#: the probes of experiments/ ported to the card
+#: scripts beside the package that import only the port: chip_smoke.py, the
+#: probes of experiments/ ported to the card, the crash soak and the host
+#: profilers
 _SCRIPTS = ("chip_smoke.py", "experiments/torch_fused2_probe.py",
             "experiments/torch_phrase_delta_probe.py", "experiments/torch_tbound_probe.py",
-            "experiments/torch_membership_tune.py")
+            "experiments/torch_membership_tune.py", "experiments/torch_crash_recovery.py",
+            "experiments/torch_serve_host_profile.py", "experiments/torch_http_echo_probe.py",
+            "experiments/torch_assemble_probe.py", "experiments/torch_hydration_profile.py",
+            "experiments/torch_hydration_only_profile.py", "experiments/torch_index_profile.py")
 
 #: top-level names the port and chip_smoke.py never import: the JAX stack,
 #: the JAX package, and the repo's bench.py and test modules (tests/ is on
@@ -174,7 +178,15 @@ COPIES = {
     "store/docinfo.py": (),
     "store/kv.py": (),
     "store/native_kv.py": (),
-    "store/tables.py": (),
+    "store/tables.py": (  # the docs pack's torn-tail repair (store/durable_kv.py)
+        ("                    parts = line.split()\n",
+         "                    if not line.endswith(\"\\n\"):\n"
+         "                        continue  # torn tail: its writer died mid-line\n"
+         "                    parts = line.split()\n"),
+        ('            self._iw = open(self.idx_path, "a", encoding="utf-8")\n',
+         "            cut_torn_line(self.idx_path)  # never glue a line onto a torn one\n"
+         '            self._iw = open(self.idx_path, "a", encoding="utf-8")\n'),
+    ),
     "text/laundry.py": (),
     "text/porter2.py": (),
     "text/stopwords.py": (),

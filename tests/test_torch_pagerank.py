@@ -131,6 +131,52 @@ def test_matches_go_reference_loop():
     np.testing.assert_allclose(got32[0], [expected[k] for k in nodes], rtol=2e-4, atol=1e-6)
 
 
+#: the stop-point check: seeded graphs of ~3,000 nodes, 16 categories for the
+#: topic model (the quirk model's three numPages inits, as _extra gives them)
+STOP_NODES, STOP_CATEGORIES = 3000, 16
+
+
+@pytest.mark.parametrize("seed", range(1, 9))
+@pytest.mark.parametrize("model", ["power", "personalized"])
+def test_float32_stop_point_against_jax(model, seed):
+    """Where the JAX package's float32 loop stops, found without changing
+    it: the port stops after n = stats["iterations"]; its last iteration
+    that changed the ranks is n, or n - 1 when the stop came from a zero
+    delta (that iteration changed nothing). The JAX run at max_iters=last
+    must be bit-equal to its run at the default and the run at last - 1
+    must not: then the JAX loop settled at the same iteration.
+
+    The quirk model must stop where the JAX package does on every graph.
+    The topic model's eps (1e-12) is below float32's rounding noise, so its
+    stop is the first iteration whose rounding happens to leave a delta
+    that small, and that depends on the order of the float32 sums: where
+    the two packages stop apart, the port's own stop must move when each
+    destination's in-edges are summed in another order (the graph and the
+    ranks unchanged). The ranks agree within F32_RTOL either way."""
+    _, nodes, src, dst, outdeg = _graph(seed, STOP_NODES)
+    n = len(nodes)
+    extra = (_extra(model, seed, n, STOP_NODES) if model == "power"
+             else _personalization(seed, STOP_CATEGORIES, n))
+    stats: dict = {}
+    got = _run_torch(model, src, dst, outdeg, extra, n, torch.float32, stats=stats)
+    last = stats["iterations"] - (stats["delta"] == 0)
+    want = _run_jax(model, src, dst, outdeg, extra, n, jnp.float32)
+    np.testing.assert_allclose(got, want, rtol=F32_RTOL, atol=0)
+    at_last = _run_jax(model, src, dst, outdeg, extra, n, jnp.float32, max_iters=last)
+    before = _run_jax(model, src, dst, outdeg, extra, n, jnp.float32, max_iters=last - 1)
+    same_stop = np.array_equal(at_last, want) and not np.array_equal(before, want)
+    order = np.lexsort((np.random.default_rng(seed).random(len(dst)), dst))
+    reordered: dict = {}
+    _run_torch(model, src[order], dst[order], outdeg, extra, n, torch.float32, stats=reordered)
+    print(f"{model} seed {seed}: port stops at {stats['iterations']} (delta {stats['delta']:.3g}), "
+          f"JAX settles there: {same_stop}; with the edges reordered the port stops at "
+          f"{reordered['iterations']}")
+    if model == "power":
+        assert same_stop
+    else:
+        assert same_stop or reordered["iterations"] != stats["iterations"]
+
+
 def test_quirk_categories_identical():
     """Different numPages inits converge to the same fixed point."""
     _, nodes, src, dst, outdeg = _graph(3, 15)
