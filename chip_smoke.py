@@ -115,8 +115,9 @@ Phases (any failure raises and the script exits non-zero):
      cli.soak_sharded --device cuda:0 --seconds 90 (its 524,288-doc store,
      its server with 8 shards on the one card, its warm pass), which then
      waits for its start file; its load and refreshes run after phase 14,
-     on their own (no error, at least 1 refresh, p50/p99, and its server
-     segregating phrase-class batches, as it does from 2^19 docs). Phase 3 is
+     beside phase 18's crash soak (no error, at least 1 refresh, p50/p99,
+     and its server segregating phrase-class batches, as it does from 2^19
+     docs). Phase 3 is
      set-up too; the two run beside it so that the smoke keeps its time
      limit.
  16. the port's bench (spaghettisearch_tpu_torch/bench.py), each mode in a
@@ -142,13 +143,25 @@ Phases (any failure raises and the script exits non-zero):
      tiles so the k-th cut falls in a tie, a duplicated term, B=45 and 77
      against 32-row tiles) and on check.ADVERSARIAL; K6, its table
      build and its phrase-row partition (phrase_delta.plain_phrase_rows)
-     on check.ADVERSARIAL's phrases; and the four probe scripts
-     (torch_fused2_probe, torch_phrase_delta_probe at 100k,
-     torch_tbound_probe, torch_membership_tune), started with phase 16's
-     modes, each in a process of its own, each required to pass its
-     original's exactness check; the fused2 and phrase-delta probes' K5
-     and K6 launches are those kernels' launches on their paths;
- 18. the crash soak (inside phase 16's window, started with its modes):
+     on check.ADVERSARIAL's phrases; K2 with the doc-sorted body bound
+     (body_tmax) at each tmax_stage ("kw", "phrase", "both") on the
+     B=128 and B=16 mixed batches and the adversarial batches, with and
+     without qnb, counts on and elided, each output torch.equal to K2
+     without the bound and within K2's tolerance of its plain version;
+     the twelve corpus and top-k probes (PROBES_IN_PROCESS: their run()
+     on phase 3's corpus and engine, at --reps 1; those whose originals
+     default to the crawl-built 1M corpus at 100k), each required to pass
+     its own exactness check, their seconds printed; and five probe
+     scripts (torch_fused2_probe, torch_phrase_delta_probe at 100k,
+     torch_tbound_probe, torch_membership_tune, torch_sparse_probe at
+     250,000 of its original's 1M synthetic docs), started with phase
+     16's modes, each in a
+     process of its own, each required to pass its original's exactness
+     check; the fused2 and phrase-delta probes' K5 and K6 launches are
+     those kernels' launches on their paths, and the bounded K2 launches
+     of torch_mixed_tbound_probe's run are the mixed_tmax entry's;
+ 18. the crash soak (started with phase 15's load, its checks inside
+     phase 16's window):
      experiments/torch_crash_recovery.py --phase all in a process of its
      own on a copy of phase 3's corpus: a bulk indexer SIGKILLed 0.35 s
      into its third flush cycle (committed flushes intact, the
@@ -210,7 +223,8 @@ def plain_kernels():
              mixed.mixed_scores_2sec, fused.fused_final_scores)
 
     def k2_plain(t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, qn, ph_ids,
-                 ph_valid, pn, *, emit_counts=True, qnb=None):
+                 ph_valid, pn, *, emit_counts=True, qnb=None, body_tmax=None,
+                 tmax_stage="kw"):
         out = mixed.plain_mixed_scores(
             t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, ph_ids, ph_valid, qnb=qnb
         )
@@ -1479,15 +1493,33 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
     return reps
 
 
+#: the sparse probe's synthetic docs in phase 17, cut from its original's
+#: 1M so that its host build stays small beside phase 16's modes (the 1M
+#: run is the probe alone)
+SPARSE_DOCS = 250_000
 #: phase 17: the probes of experiments/ ported to the card, each in a
 #: process of its own beside phase 16's oracle modes, at their originals'
-#: sizes, except phrase_delta: its original's crawl-built 1M corpus takes
-#: ~46 minutes to build, so it runs on phase 3's 100k corpus
+#: sizes, except phrase_delta (its original's crawl-built 1M corpus takes
+#: ~46 minutes to build, so it runs on phase 3's 100k corpus) and sparse
+#: (SPARSE_DOCS)
 PROBES = (("fused2", "torch_fused2_probe.py", ()),
           ("phrase_delta", "torch_phrase_delta_probe.py", (str(PAGES),)),
           ("tbound", "torch_tbound_probe.py", ()),
-          ("membership_tune", "torch_membership_tune.py", ()))
+          ("membership_tune", "torch_membership_tune.py", ()),
+          ("sparse", "torch_sparse_probe.py", ("--docs", str(SPARSE_DOCS))))
 PROBE_TIMEOUT_S = 600
+#: phase 17: the corpus probes run in this process on phase 3's corpus and
+#: engine (each module's run(); the engine is warm by then), and topk on a
+#: seeded matrix; the six whose originals default to the crawl-built 1M
+#: corpus run at 100k, as torch_phrase_delta_probe does
+PROBES_IN_PROCESS = (("topk_probe", {}), ("probe1m_decomp", {}), ("headline_tbound_probe", {}),
+                     ("mixed_tbound_probe", {}), ("phrase_tmax_probe", {}), ("post16_probe", {}),
+                     ("mixed_stage_probe", {"warm": False}), ("phrase_stage_probe", {}),
+                     ("mixed256_probe", {}), ("split_probe", {}),
+                     ("probe1m", {"warm": False}), ("segregate_probe", {"warm": False}))
+#: K2's bounded stage whose time the kernels line's mixed_tmax entry holds
+#: (each stage's is printed): "both" bounds every body loop
+TMAX_LINE_STAGE = "both"
 #: K6's phrase-row budget in the split program (phrase_delta_probe.py bp)
 BP_DELTA = 16
 
@@ -1757,7 +1789,7 @@ def main() -> int:
     t0 = time.perf_counter()
     df = snap.body.df(range(snap.n_words)).astype("float64")
     records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": [],
-               "fused_topk": [], "phrase_delta": []}
+               "fused_topk": [], "phrase_delta": [], "mixed_tmax": []}
     main_counts = idx.has_zero_weight  # the engine's emit_counts
     doc_sort = idx.body.tmax_blocks is not None
     idx32 = dataclasses.replace(idx, **{  # the f32 planes a pathological corpus keeps
@@ -2136,22 +2168,24 @@ def main() -> int:
     # 14. refresh under load on one card at the 100k corpus
     refresh_phase(snap, queries, kw_only, smi, phase_launches)
     lap("14 refresh")
-    # 15. the sharded soak's load and refreshes, on their own
+    # 15. the sharded soak's load and refreshes, with the crash soak (18)
+    # started beside them: its kills and restart run here and in phase 16,
+    # and its restarted server holds for phase 16's checks
     t0 = time.perf_counter()
+    crash = Crash(args.seed)
+    atexit.register(crash.kill)
     with open(go, "w"):
         pass
-    rep = sharded.finish(1, smi, " (its load and refreshes alone, after phase 14)")
+    rep = sharded.finish(1, smi, " (its load and refreshes after phase 14, beside the crash soak)")
     if rep.get("segregation") != "active":
         raise RuntimeError(f"soak_sharded: phrase-class segregation was not on at "
                            f"{SOAK_SHARDED_DOCS} docs: {rep}")
     say(f"# soak_sharded: {time.perf_counter() - t0:.1f}s from its start file to its end")
     lap("15 the sharded soak's load")
     # 16. the port's bench modes, each in a process of its own, with the
-    # probes (17) and the crash soak (18) beside them
+    # probes (17) and the crash soak's checks (18) beside them
     probes = Probes(args.seed)
     atexit.register(probes.kill)
-    crash = Crash(args.seed)
-    atexit.register(crash.kill)
     crash_s = [0.0]
 
     def crash_18() -> None:
@@ -2160,11 +2194,86 @@ def main() -> int:
         crash_s[0] = time.perf_counter() - crash.t0
         say(f"# phase 18: {time.perf_counter() - t0:.1f}s in this process after phase 17")
     probe_s = [0.0]
+    k2_tmax_ms: dict[str, float] = {}
+    probe_runs: dict[str, float] = {}
+
+    def k2_bounded() -> None:
+        """K2 with the doc-sorted body bound (body_tmax) at each tmax_stage
+        on the serving mix at B=128 and B=16 and on the adversarial
+        batches, with and without the hot split's qnb, counts on and
+        elided: every output torch.equal to K2 without the bound, and
+        within K2's tolerance of its plain version."""
+        if idx.body.tmax_blocks is None:
+            raise RuntimeError("the 100k index is not doc-sorted: K2's bound has nothing to read")
+        cases = [("B=128 Q=4 P=16", mbatch), ("B=16 Q=4 P=4", mbatch16)]
+        for kind in check.ADVERSARIAL:
+            cases.append((f"adversarial {kind}", check.to_device(
+                check.adversarial_batch(idx, kind, seed=7, df=df, snap=snap, b=128), "cuda")))
+        cases.append(("adversarial log_full B=16", check.to_device(
+            check.adversarial_batch(idx, "log_full", seed=8, df=df, snap=snap, b=16), "cuda")))
+        n = 0
+        for what, batch in cases:
+            for split in (True, False):
+                b = dict(batch, split=split and batch["split"])
+                want = check.run_k2(idx, b, True, plain=True)
+                for emit in (True, False):
+                    static = check.run_k2(idx, b, emit)
+                    plain = want if emit else (want[0], None, want[2], None)
+                    for stage in mixed.TMAX_STAGES:
+                        got = check.run_k2(idx, b, emit, tmax_stage=stage)
+                        if not all((g is None and t is None) or torch.equal(g, t)
+                                   for g, t in zip(got, static)):
+                            raise RuntimeError(f"K2 with body_tmax ({stage}) differs from K2 "
+                                               f"without it: {what} qnb={b['split']} "
+                                               f"counts={emit}")
+                        rep = check.compare(got, plain)
+                        if not rep["ok"]:
+                            raise RuntimeError(f"K2 with body_tmax ({stage}) disagrees with its "
+                                               f"plain version: {what}: {rep}")
+                        records["mixed_tmax"].append(rep)
+                        n += 1
+        say(f"# K2 with body_tmax: {n} calls ({len(cases)} batches x qnb on/off x counts "
+            f"on/elided x stages {list(mixed.TMAX_STAGES)}) equal K2 without the bound "
+            f"bit for bit and hold to its plain version (max abs err "
+            f"{max(r['max_abs_err'] for r in records['mixed_tmax'])})")
+        for stage in mixed.TMAX_STAGES:
+            k2_tmax_ms[stage] = check.time_ms(
+                lambda: check.run_k2(idx, mbatch, main_counts, tmax_stage=stage))
+        k2_tmax_ms["plain"] = check.time_ms(
+            lambda: check.run_k2(idx, mbatch, main_counts, plain=True), iters=3, warmup=1)
+        k2_tmax_ms["static"] = check.time_ms(lambda: check.run_k2(idx, mbatch, main_counts))
+        say(f"# K2 at B=128 Q=4 P=16, ms per call: {json.dumps(k2_tmax_ms)} ({smi})")
+
+    def probes_in_process() -> None:
+        """The corpus probes' run() on this process's 100k corpus and
+        engine, each with its own exactness check, at --reps 1."""
+        sys.path.insert(0, os.path.join(HERE, "experiments"))
+        import importlib
+
+        for name, kw in PROBES_IN_PROCESS:
+            mod = importlib.import_module(f"torch_{name}")
+            t0 = time.perf_counter()
+            log = (lambda name: lambda m: say(f"# probe {name}: {m}"))(name)
+            if name == "topk_probe":
+                res = mod.run(torch.device("cuda"), reps=1, say=log)
+            elif name == "post16_probe":  # the f32 planes phase 4 already made
+                res = mod.run(snap, db, engine, reps=1, say=log,
+                              f32_planes=(idx32.title.posT, idx32.body.posT))
+            else:
+                res = mod.run(snap, db, engine, reps=1, say=log, **kw)
+            probe_runs[name] = round(time.perf_counter() - t0, 1)
+            say(f"# probe {name} ({probe_runs[name]}s in this process, {smi}): "
+                f"{json.dumps(res)}")
+            if not res["ok"]:
+                raise RuntimeError(f"probe {name}: its exactness check failed: {res}")
+            if name == "mixed_tbound_probe":
+                phase_launches["probe_mixed_tbound"] = {"mixed_tmax": res["launches"]["K2_tmax"]}
 
     def probes_phase() -> None:
         """Phase 17 (inside phase 16's window, after this process's other
         checks): K5 and K6 against their plain versions on the batches
-        that stress them, then the probe processes' own checks."""
+        that stress them, K2 with the body bound, the corpus probes in
+        this process, then the probe processes' own checks."""
         t0 = time.perf_counter()
         for b in (45, 77):  # ragged row tiles of 32
             k5_case = check.topk_case(idx, b, seed=b, df=df)
@@ -2193,20 +2302,28 @@ def main() -> int:
             held("phrase_delta", check.compare_delta(check.run_k6(idx, batch, True),
                                                      check.run_k6(idx, batch, True, plain=True)),
                  f"K6 adversarial {kind} flag=True (tables and partition equal to the plain)")
+        t_k2 = time.perf_counter()
+        k2_bounded()
+        t_in = time.perf_counter()
+        probes_in_process()
         t1 = time.perf_counter()
         res = probes.finish(smi)
         phase_launches["probe_fused2"] = {"fused_topk": res["fused2"]["launches"]["K5"]}
         phase_launches["probe_phrase_delta"] = {
             "phrase_delta": res["phrase_delta"]["launches"]["K6"]}
         probe_s[0] = time.perf_counter() - t0
-        say(f"# phase 17: K5/K6 holds {t1 - t0:.1f}s, then {time.perf_counter() - t1:.1f}s "
-            f"waiting for the probe processes")
+        say(f"# phase 17: K5/K6 holds {t_k2 - t0:.1f}s, K2 with body_tmax {t_in - t_k2:.1f}s, "
+            f"the probes in this process {t1 - t_in:.1f}s ({json.dumps(probe_runs)}), then "
+            f"{time.perf_counter() - t1:.1f}s waiting for the probe processes")
 
     bench_phase(smi, phase_launches, args.seed,
                 beside=(adversarial, mesh["variants"], probes_phase, crash_18))
     lap("16 bench")
     phase_s["17 probes (inside 16)"] = round(probe_s[0], 1)
-    phase_s["18 crash soak (inside 16)"] = round(crash_s[0], 1)
+    times["mixed_tmax"] = (k2_tmax_ms[TMAX_LINE_STAGE], k2_tmax_ms["plain"])
+    bounds["mixed_tmax"] = bounds["mixed"]  # the same work: the bound skips only pads
+    library["mixed_tmax"] = None
+    phase_s["18 crash soak (from 15)"] = round(crash_s[0], 1)
     say(f"# launches per path: {json.dumps(phase_launches)}")
     say(f"# phase seconds: {json.dumps(phase_s)}")
     say(f"# smoke took {time.perf_counter() - t_start:.1f}s")
@@ -2225,6 +2342,8 @@ def main() -> int:
         ("fused_topk", "fused_topk.cu", "experiments/fused2_probe.py:126", "probe_fused2"),
         ("phrase_delta", "phrase_delta.cu", "experiments/phrase_delta_probe.py:114",
          "probe_phrase_delta"),
+        ("mixed_tmax", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514",
+         "probe_mixed_tbound"),
     ):
         n = phase_launches[path][kname.removesuffix("_shard")]
         if n == 0:

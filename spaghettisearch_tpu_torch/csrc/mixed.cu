@@ -45,9 +45,24 @@
 // block of 64 rows with counts elided: 32 KB of sums, the 4 KB filter, the
 // table (8 B an entry: 10 KB at Q=4, P=16), the 8 KB log, 1.25 KB of
 // flags: 4 blocks per SM.
+//
+// The doc-sorted layout's body bound (body_tmax, as K1 reads it: the max
+// distinct-term count of each 512-doc block, read at the warp's first doc
+// so it is warp-uniform; probe.cuh body_bound). Slots past a block's tmax
+// are pads, so every bounded call gives the unbounded call's results bit
+// for bit. The TPU kernel has two body loops, the keyword sweep and one
+// sweep per phrase term, and its tmax_stage picks which the bound cuts
+// ("kw", "phrase" or "both"). Here keyword and phrase hits come from ONE
+// sweep, and the only other body loop is the rescan after a log overflow
+// (phrase.cuh phrase_matches). So the stage mask maps onto these two:
+// kTmaxSweep ("kw") bounds the sweep, kTmaxRescan ("phrase") the rescan,
+// both bits ("both") both. The title section is never bounded.
 #include "phrase.cuh"
 
 namespace ss {
+
+constexpr int kTmaxSweep = 1;   // tmax_stage "kw"
+constexpr int kTmaxRescan = 2;  // tmax_stage "phrase"
 
 template <bool kCounts>
 __global__ void __launch_bounds__(probe::kDocs)
@@ -59,6 +74,7 @@ mixed_kernel(const int* __restrict__ title_ftT,
              const void* body_posT, int Cb, int bpos16,
              const int* __restrict__ tbl_term, const int* __restrict__ tbl_pay,
              int N, int R, int B, const int* __restrict__ ph_req,
+             const int* __restrict__ body_tmax, int tmax_block, int tmax_stage,
              float* __restrict__ ts, float* __restrict__ tc,
              float* __restrict__ bs, float* __restrict__ bc) {
   using namespace probe;
@@ -82,9 +98,14 @@ mixed_kernel(const int* __restrict__ title_ftT,
   for (int w = 0; w < kOkWords; ++w) s_ok[w * kDocs + threadIdx.x] = 0u;  // next barrier
   uint32_t* okbits = s_ok + threadIdx.x;
 
+  // the body's bound (Tb without body_tmax) for the loops the stage picks:
+  // Section.bound is the rescan's, sweep_bound the sweep's
+  const int tmax = body_bound(body_tmax, tmax_block, Tb, D, d);
+  const int sweep_bound[2] = {Tt, tmax_stage & kTmaxSweep ? tmax : Tb};
   const Section secs[2] = {
       {title_ftT, title_fwT, title_posT, tpos16 != 0, Tt, Ct, Tt},
-      {body_ftT, body_fwT, body_posT, bpos16 != 0, Tb, Cb, Tb},
+      {body_ftT, body_fwT, body_posT, bpos16 != 0, Tb, Cb,
+       tmax_stage & kTmaxRescan ? tmax : Tb},
   };
   float* outs[2][2] = {{ts, tc}, {bs, bc}};
 #pragma unroll
@@ -96,7 +117,7 @@ mixed_kernel(const int* __restrict__ title_ftT,
     zero_rows(acc_s, R);
     if (kCounts) zero_rows(acc_c, R);
     PhraseLog plog{s_log + threadIdx.x, kLog, 0, false};
-    sweep<kCounts, true>(sec.ftT, sec.fwT, sec.bound, D, d, live, s_term,
+    sweep<kCounts, true>(sec.ftT, sec.fwT, sweep_bound[s], D, d, live, s_term,
                          s_pay, s_filter, n, acc_s, acc_c, &plog);
     if (live) {
       phrase_stage<kCounts>(sec, s == 0, D, d, r0, R, s_term, s_pay, s_filter,
@@ -110,18 +131,22 @@ mixed_kernel(const int* __restrict__ title_ftT,
 }  // namespace ss
 
 // K2: build the batch's probe tables (keyword and phrase entries) into
-// `tables` (probe.cuh Tables layout), then sweep.
+// `tables` (probe.cuh Tables layout), then sweep. body_tmax (may be null:
+// no bound) holds one bound per tmax_block docs; tmax_stage is a mask of
+// kTmaxSweep and kTmaxRescan.
 extern "C" int ss_mixed(const int* title_ftT, const float* title_fwT, int Tt,
                         const int* body_ftT, const float* body_fwT, int Tb,
                         int D, const void* title_posT, int Ct, int tpos16,
                         const void* body_posT, int Cb, int bpos16,
                         const int* tq, int B, int Q, const int* qn,
                         const int* qnb, const int* ph_ids,
-                        const float* ph_valid, int P, int* tables, int R,
+                        const float* ph_valid, int P, const int* body_tmax,
+                        int tmax_block, int tmax_stage, int* tables, int R,
                         int N, float* ts, float* tc, float* bs, float* bc,
                         void* stream) {
   using ss::probe::kDocs;
-  if (P < 1 || P > ss::kPMax || Ct > ss::kCMax || Cb > ss::kCMax)
+  if (P < 1 || P > ss::kPMax || Ct > ss::kCMax || Cb > ss::kCMax ||
+      (body_tmax != nullptr && (tmax_block % 32 != 0 || tmax_block <= 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (B + R - 1) / R;
@@ -139,8 +164,8 @@ extern "C" int ss_mixed(const int* title_ftT, const float* title_fwT, int Tt,
     if (e != cudaSuccess) return (int)e;
     kernel<<<grid, kDocs, smem, st>>>(
         title_ftT, title_fwT, Tt, body_ftT, body_fwT, Tb, D, title_posT, Ct,
-        tpos16, body_posT, Cb, bpos16, tb.term, tb.pay, N, R, B, tb.req, ts,
-        c_title, bs, c_body);
+        tpos16, body_posT, Cb, bpos16, tb.term, tb.pay, N, R, B, tb.req,
+        body_tmax, tmax_block, tmax_stage, ts, c_title, bs, c_body);
     return (int)cudaGetLastError();
   };
   if (tc != nullptr) return launch(ss::mixed_kernel<true>, tc, bc);

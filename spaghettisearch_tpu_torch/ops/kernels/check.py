@@ -319,8 +319,11 @@ def run_k4(index, batch: dict, inputs: tuple, plain: bool = False):
     )
 
 
-def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False):
-    """K2's wrapper (or its plain version) on a to_device() batch."""
+def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False,
+           tmax_stage: str | None = None):
+    """K2's wrapper (or its plain version) on a to_device() batch; with
+    tmax_stage, the wrapper bounds those body loops by the index's
+    body_tmax (the plain version needs no bound)."""
     qnb = batch["qnb"] if batch["split"] else None
     args = (
         index.title.fwd.ftT, index.title.fwd.fwT, index.body.fwd.ftT, index.body.fwd.fwT,
@@ -329,9 +332,11 @@ def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False):
     if plain:
         out = k2.plain_mixed_scores(*args, batch["ph_ids"], batch["ph_valid"], qnb=qnb)
         return out if emit_counts else (out[0], None, out[2], None)
+    bound = {} if tmax_stage is None else {"body_tmax": index.body.tmax_blocks,
+                                            "tmax_stage": tmax_stage}
     return k2.mixed_scores_2sec(
         *args, batch["qn"], batch["ph_ids"], batch["ph_valid"], batch["pn"],
-        emit_counts=emit_counts, qnb=qnb,
+        emit_counts=emit_counts, qnb=qnb, **bound,
     )
 
 

@@ -23,6 +23,15 @@ JAX package's XLA twin mixed_forward_scores, doc-blocked), which is also
 the on-card reference. The kernel reads keyword and phrase terms through
 one probe table per section (probe.py build_tables).
 
+body_tmax and tmax_stage (the doc-sorted layout's per-512-doc-block slot
+bound, the JAX kernel's parameters of the same names) only narrow the
+kernel's work: slots past a block's tmax are pads, so the plain version,
+which ignores them, computes the same result, and the kernel with a bound
+gives its unbounded results bit for bit. "kw" bounds the kernel's one
+sweep of the body slots (keyword and phrase hits together), "phrase" the
+rescan of a doc's body slots after its phrase-hit log overflowed, "both"
+both (csrc/mixed.cu says why these are the two loops here).
+
 Value-domain invariants (shared with the JAX package): real positions are
 -100 or in [0, POS_REAL_MAX); the pad is POS_BIG (finite, exactly
 representable in f32); an absent (doc, term) selects position 0.0, which is
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 from . import probe
-from .membership import Q_MAX, _check, _int32, plain_section_scores
+from .membership import Q_MAX, TMAX_BLOCK, _check, _int32, plain_section_scores
 
 #: pad value for absent position slots (see the module docstring)
 POS_BIG = float(1 << 24)
@@ -52,8 +61,14 @@ POS16_MAX = 32000.0
 P_MAX = 16
 C_MAX = 32
 
-#: launches of the CUDA kernel since the last reset
+#: tmax_stage -> the loops body_tmax bounds (csrc/mixed.cu kTmaxSweep = 1,
+#: kTmaxRescan = 2)
+TMAX_STAGES = {"kw": 1, "phrase": 2, "both": 3}
+
+#: launches of the CUDA kernel since the last reset, and of those the ones
+#: with the body bound (body_tmax)
 LAUNCHES = 0
+LAUNCHES_TMAX = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # title ftT, fwT, Tt
@@ -64,6 +79,7 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # term_ids, B, Q
     ctypes.c_void_p, ctypes.c_void_p,  # qn, qnb (qnb may be null)
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ph_ids, ph_valid, P
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # body_tmax, tmax_block, stage mask
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table scratch, rows per tile, entries per tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outs
     ctypes.c_void_p,  # stream
@@ -71,8 +87,8 @@ _ARGTYPES = [
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, LAUNCHES_TMAX
+    LAUNCHES = LAUNCHES_TMAX = 0
 
 
 def library():
@@ -251,13 +267,26 @@ def mixed_scores_2sec(
     *,
     emit_counts: bool = True,
     qnb=None,  # int32 [B] cold-term counts (hot split)
+    body_tmax=None,  # int32 [D // 512] (doc-sorted layout)
+    tmax_stage: str = "kw",  # the loops body_tmax bounds: "kw", "phrase", "both"
 ):
     """-> (title score, title count, body score, body count), each [B, D],
     phrase weights/candidacy folded in (counts None when emit_counts=False:
     candidacy <=> score > 0, valid iff every index weight is positive). The
     valid phrase slots are read from ph_valid; pn, like the plain version,
-    the kernel does not need. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    the kernel does not need. body_tmax bounds the body loops tmax_stage
+    names (the module docstring); it is read at 512 docs, as K1 reads it.
+    The JAX kernel's tc, its Mosaic chunk of body slot rows, has no
+    counterpart: a thread here walks its own doc's slots, so there are no
+    chunks to size. CPU tensors take the plain version (which needs no
+    bound); CUDA tensors launch the kernel."""
+    d = title_ftT.shape[1]
+    if tmax_stage not in TMAX_STAGES:
+        raise ValueError(f"tmax_stage {tmax_stage!r}: one of {sorted(TMAX_STAGES)}")
+    if body_tmax is not None:
+        _check(body_tmax, "body_tmax", torch.int32, 1, term_ids.device)
+        if d % TMAX_BLOCK or body_tmax.shape[0] != d // TMAX_BLOCK:
+            raise ValueError(f"body_tmax {tuple(body_tmax.shape)} vs D={d}")
     if term_ids.device.type == "cpu":
         ts, tc, bs, bc = plain_mixed_scores(
             title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
@@ -315,6 +344,8 @@ def mixed_scores_2sec(
             term_ids.data_ptr(), b, q, qn.data_ptr(),
             None if qnb is None else qnb.data_ptr(),
             ph_ids.data_ptr(), ph_valid.data_ptr(), p,
+            None if body_tmax is None else body_tmax.data_ptr(), TMAX_BLOCK,
+            TMAX_STAGES[tmax_stage],
             tables.data_ptr(), rows, n,
             ts.data_ptr(), None if tc is None else tc.data_ptr(),
             bs.data_ptr(), None if bc is None else bc.data_ptr(),
@@ -322,8 +353,9 @@ def mixed_scores_2sec(
         )
     if err != 0:
         raise RuntimeError(f"mixed kernel launch failed (cudaError {err})")
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TMAX
     LAUNCHES += 1
+    LAUNCHES_TMAX += body_tmax is not None
     return ts, tc, bs, bc
 
 
@@ -331,17 +363,21 @@ def mixed_scores_padded(
     title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
     term_ids, qn, ph_ids, ph_valid, pn,
     *, emit_counts: bool = True, qnb=None, derive: bool = True,
+    body_tmax=None, tmax_stage: str = "kw",
 ):
     """Run the mixed scorer on any batch size (the wrapper row-pads to the
     kernel's 8-row blocks and slices back) and derive candidacy counts when
     elided. The single pad/dispatch contract of the mixed lane, as in the
-    JAX package."""
+    JAX package. body_tmax stays at
+    the index's 512-doc blocks (the JAX package repeats it down to its
+    256-doc grid; this kernel reads it per warp, as K1 does)."""
     b = term_ids.shape[0]
     if qn is None:
         qn = torch.full((b,), term_ids.shape[1], dtype=torch.int32, device=term_ids.device)
     ts, tc, bs, bc = mixed_scores_2sec(
         title_ftT, title_fwT, body_ftT, body_fwT, title_posT, body_posT,
         term_ids, qn, ph_ids, ph_valid, pn, emit_counts=emit_counts, qnb=qnb,
+        body_tmax=body_tmax, tmax_stage=tmax_stage,
     )
     if not derive:  # caller folds hot-term scores first, then derives
         return ts, tc, bs, bc

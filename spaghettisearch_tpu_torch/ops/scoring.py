@@ -265,12 +265,16 @@ def score_queries_mixed(
     hot_sids=None,
     hot_w=None,
     doc_map=None,  # int32 [D] permuted -> natural ids
+    body_tmax=None,  # int32 [D // 512] (doc-sorted layout)
     *,
     topk: int,
     emit_counts: bool = True,
+    tmax_stage: str = "phrase",  # the K2 loops body_tmax bounds ("kw" / "phrase" / "both")
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused mixed lane (kernel K2): keyword membership scoring + dense
-    phrase matching + fold + finalize + top-k."""
+    phrase matching + fold + finalize + top-k. body_tmax (doc-sorted
+    layout) bounds the kernel's body loops that tmax_stage picks
+    (kernels/mixed.py); the plain version ignores it (result-identical)."""
     if pn is None:
         pn = ph_valid.sum(dim=1).to(torch.int32)
     # derive candidacy AFTER the hot fold: a doc matched only by a hot body
@@ -278,7 +282,8 @@ def score_queries_mixed(
     ts, tc, bs, bc = _k2.mixed_scores_padded(
         title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
         title_posT, body_posT, term_ids, qn, ph_ids, ph_valid, pn,
-        emit_counts=emit_counts, qnb=qnb, derive=False,
+        emit_counts=emit_counts, qnb=qnb, derive=False, body_tmax=body_tmax,
+        tmax_stage=tmax_stage,
     )
     bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
     ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)

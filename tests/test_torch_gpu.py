@@ -159,6 +159,50 @@ def test_mixed_kernel_adversarial(cuda, corpus, indexes, kind, b, emit_counts):
     assert rep["ok"], rep
 
 
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("emit_counts", [True, False])
+@pytest.mark.parametrize("stage", ["kw", "phrase", "both"])
+@pytest.mark.parametrize("kind", ["mixed16", "mixed128", *check.ADVERSARIAL])
+def test_mixed_kernel_with_body_tmax(cuda, corpus, indexes, kind, stage, emit_counts, split):
+    """K2 with the doc-sorted layout's body bound, each stage, with and
+    without the hot split's qnb: bit-identical to K2 without the bound,
+    and within the tolerance of its plain version. every_row and log_full
+    take the rescan path the "phrase" stage bounds."""
+    idx = indexes[True]
+    snap = corpus[1]
+    if kind.startswith("mixed"):
+        b = int(kind[5:])
+        nb = check.mixed_batch(idx, b, 4, 16 if b == 128 else 4, seed=b, df=_df(snap), snap=snap)
+    else:
+        nb = check.adversarial_batch(idx, kind, seed=5, df=_df(snap), snap=snap, b=128)
+    batch = dict(check.to_device(nb, cuda), split=split and nb["split"])
+    n0, t0 = k2.LAUNCHES, k2.LAUNCHES_TMAX
+    got = check.run_k2(idx, batch, emit_counts, tmax_stage=stage)
+    assert (k2.LAUNCHES, k2.LAUNCHES_TMAX) == (n0 + 1, t0 + 1)
+    static = check.run_k2(idx, batch, emit_counts)
+    assert k2.LAUNCHES_TMAX == t0 + 1
+    want = check.run_k2(idx, batch, emit_counts, plain=True)
+    torch.cuda.synchronize()
+    for g, s in zip(got, static):
+        assert (g is None and s is None) or torch.equal(g, s)
+    rep = check.compare(got, want)
+    assert rep["ok"], rep
+
+
+def test_mixed_kernel_rejects_bad_bounds(cuda, indexes):
+    idx = indexes[True]
+    batch = check.to_device(check.mixed_batch(idx, 16, 4, 4, seed=1), cuda)
+    args = (idx.title.fwd.ftT, idx.title.fwd.fwT, idx.body.fwd.ftT, idx.body.fwd.fwT,
+            idx.title.posT, idx.body.posT, batch["term_ids"], batch["qn"], batch["ph_ids"],
+            batch["ph_valid"], batch["pn"])
+    tmax = idx.body.tmax_blocks
+    for bad in (tmax[:-1], tmax.to(torch.int64), tmax.cpu()):
+        with pytest.raises(ValueError):
+            k2.mixed_scores_2sec(*args, body_tmax=bad)
+    with pytest.raises(ValueError):
+        k2.mixed_scores_2sec(*args, body_tmax=tmax, tmax_stage="body")
+
+
 @pytest.mark.parametrize("section", ["title", "body"])
 @pytest.mark.parametrize("emit_counts", [True, False])
 @pytest.mark.parametrize("b,q", [(16, 4), (128, 4), (128, 32)])

@@ -8,6 +8,7 @@ inputs they do not take."""
 from __future__ import annotations
 
 import ast
+import glob
 import inspect
 import os
 import pkgutil
@@ -43,15 +44,12 @@ def _port_modules() -> list[str]:
     )
 
 
-#: scripts beside the package that import only the port: chip_smoke.py, the
-#: probes of experiments/ ported to the card, the crash soak and the host
-#: profilers
-_SCRIPTS = ("chip_smoke.py", "experiments/torch_fused2_probe.py",
-            "experiments/torch_phrase_delta_probe.py", "experiments/torch_tbound_probe.py",
-            "experiments/torch_membership_tune.py", "experiments/torch_crash_recovery.py",
-            "experiments/torch_serve_host_profile.py", "experiments/torch_http_echo_probe.py",
-            "experiments/torch_assemble_probe.py", "experiments/torch_hydration_profile.py",
-            "experiments/torch_hydration_only_profile.py", "experiments/torch_index_profile.py")
+#: scripts beside the package that import only the port: chip_smoke.py and
+#: every experiments/torch_*.py (the probes, soaks and profilers ported to
+#: the card, their shared set-up, the A/B and profile tools)
+_SCRIPTS = ("chip_smoke.py", *sorted(
+    os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "experiments", "torch_*.py"))
+))
 
 #: top-level names the port and chip_smoke.py never import: the JAX stack,
 #: the JAX package, and the repo's bench.py and test modules (tests/ is on
@@ -61,6 +59,8 @@ _FORBIDDEN = ("jax", "jaxlib", "lxml", "aiohttp", "spaghettisearch_tpu",
 
 
 def test_port_imports_without_jax_or_lxml():
+    assert {"experiments/torch_kernel_ab.py", "experiments/torch_profile.py",
+            "experiments/torch_sparse_probe.py"} <= set(_SCRIPTS) and len(_SCRIPTS) >= 28
     mods = _port_modules()
     assert "spaghettisearch_tpu_torch.retrieval.engine" in mods and len(mods) > 25
     assert {"spaghettisearch_tpu_torch.parallel.mesh", "spaghettisearch_tpu_torch.parallel.sharded",
