@@ -10,10 +10,12 @@ Phases (any failure raises and the script exits non-zero):
      K5, phrase_delta.cu: K6), all at once (nvcc for sm_90a; ptxas
      registers / shared memory / spills printed);
   3. corpus: the seeded benchmark corpus built by the port's bench
-     (bench.py build_bench_corpus: corpus.py's pages through the indexer,
-     PageRank on the card, term weights) into build/bench/corpus100k, its
-     store, saved snapshot and BUILT.json, where phase 16's bench modes
-     find it; the device index;
+     (bench.py build_bench_corpus, in a process of its own: corpus.py's
+     pages through the indexer in as many processes as the host has cores,
+     index/parallel_build.py, PageRank on the card, term weights) into
+     build/bench/corpus100k, its store, saved snapshot and BUILT.json,
+     where phase 16's bench modes find it; each build step's seconds; the
+     device index;
   4. kernels vs their plain versions on the card at the main path's shapes,
      with CUDA-event times of both: K1 at B=128 with Q=4 and Q=32, both
      count variants, the hot split, the doc-sorted bound on and off; K2 at
@@ -173,6 +175,24 @@ Phases (any failure raises and the script exits non-zero):
      server, and a QueryEngine on the card over the same recovered store
      and snapshot ranks them with the kernels (K1 and K2 launched) and on
      the plain path: every answer equal to both.
+ 19. the build hold (in phase 16's window, a process of its own): the
+     benchmark corpus at HOLD_PAGES pages of the same seed built in
+     several processes and in one on this host, PageRank on the card in
+     both: every table's order-free digest equal, but doc_magnitude and
+     doc_rank (sums in the store's row order) within 1e-12 and 1e-6
+     relative, the docs pack's files byte for byte, the snapshots' arrays;
+     each build's seconds per step;
+ 20. the 2M tier's path on phase 3's corpus (in phase 16's window, a
+     process of its own; the 2M corpus does not fit the smoke's time
+     limit, so the gates are lowered below the 100k corpus instead):
+     HOT_MAX_DPAD and FWD_DEV_MAX_DPAD below its D_pad, SEGREGATE_MIN_DOCS
+     at its doc count; no hot-term cache and ft/fw/fj on the host after
+     the build and after serving; a SearchServer (batching on,
+     segregate="auto") segregating phrase-class batches answers the
+     serving phase's mix, every answer 200 JSON and equal to the
+     default-gate engine's plain path, K1 and K2 launched; phrases under a
+     custom blend take the sparse lane, whose first call uploads ft/fw/fj
+     once and whose top-50 equals the plain path.
 The wall seconds of each phase are printed before the kernels' line.
 Every phase that ranks resets the launch counts before it and reads them
 after. The line before the last is the kernels' JSON record; the last line
@@ -431,19 +451,11 @@ def latency_line(results: dict, n: int, wall: float) -> str:
 
 
 def row_terms(batch: dict, section: str, phrases: bool = False) -> list[set]:
-    """Per row, the distinct query terms a section's sweep matches: the
-    keyword columns below the row's active count (qnb for the body under
-    the hot split, qn otherwise), and with `phrases` the row's valid phrase
-    terms. Unknown words (n_words) match no slot and may stay."""
-    tq = batch["term_ids"].cpu().numpy()
-    cold = batch["split"] and section == "body"
-    active = (batch["qnb"] if cold else batch["qn"]).cpu().numpy()
-    rows = [{int(t) for t in tq[i, : active[i]] if t >= 0} for i in range(len(tq))]
-    if phrases:
-        ids, valid = batch["ph_ids"].cpu().numpy(), batch["ph_valid"].cpu().numpy()
-        for i, r in enumerate(rows):
-            r.update(int(t) for t, v in zip(ids[i], valid[i]) if v > 0 and t >= 0)
-    return rows
+    """check.row_terms: per row, the distinct query terms a section's sweep
+    matches (bound_ms's rows)."""
+    from spaghettisearch_tpu_torch.ops.kernels import check
+
+    return check.row_terms(batch, section, phrases)
 
 
 def phrase_rows(batch: dict, rows: int, n_words: int) -> dict:
@@ -1371,6 +1383,24 @@ SCALE_SNIPPET = """
 import json, chip_smoke
 print(json.dumps(chip_smoke.scale_child()))
 """
+#: phase 19: pages of the build hold (both builds of one seed), and phase
+#: 20's gates, set below the 100k corpus's D_pad (100,352) and doc count
+HOLD_PAGES = 20_000
+GATES_DPAD = 100_000
+GATES_SEGREGATE_DOCS = 100_000
+#: the children started in phase 16's window: mode -> the code `python -c` runs
+#: (its argument: the seed)
+CHILD_SNIPPETS = {
+    "scale1m": SCALE_SNIPPET,
+    "build_hold": """
+import json, sys, chip_smoke
+print(json.dumps(chip_smoke.build_hold_child(int(sys.argv[1]))))
+""",
+    "gates": """
+import json, sys, chip_smoke
+print(json.dumps(chip_smoke.gates_child(int(sys.argv[1]))))
+""",
+}
 
 
 def scale_child() -> dict:
@@ -1390,15 +1420,212 @@ def scale_child() -> dict:
     return bench.run_mode(lambda: bench.bench_scale(device="cuda", check=check), True, "cuda")
 
 
+def _store_digests(db) -> dict:
+    """Per table, an order-free digest of its stored rows (sha256 over the
+    rows sorted by key: each key and its stored value, byte for byte)."""
+    import hashlib
+
+    out = {}
+    for name, table in db.tables.items():
+        h = hashlib.sha256()
+        for k, v in sorted(table._kv.items()):
+            h.update(k.encode() + b"\0" + v.encode() + b"\n")
+        out[name] = h.hexdigest()
+    return out
+
+
+def build_hold_child(seed: int, device: str = "cuda") -> dict:
+    """Phase 19 in a process of its own: the benchmark corpus of HOLD_PAGES
+    pages built in several processes (the cores this process may use) and
+    in one, PageRank on the card in both (the parallel build first: its
+    workers fork before this process touches CUDA). Every table's digest
+    equal, but doc_magnitude and doc_rank, whose sums follow the store's
+    row order (PERF.md: two one-process builds differ there too), within
+    1e-12 and 1e-6 relative; the docs pack's files equal byte for byte;
+    the snapshots' arrays equal (magnitudes and ranks at the same bars).
+    Each build's seconds per step are printed."""
+    import numpy as np
+
+    from spaghettisearch_tpu_torch.corpus import write_corpus
+    from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
+    from spaghettisearch_tpu_torch.store.tables import TABLE_SPECS
+
+    root = os.path.join(HERE, "build", "build_hold")
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {"pages": HOLD_PAGES, "workers": len(os.sched_getaffinity(0))}
+    dbs = {}
+    for what, workers in (("parallel", None), ("one_process", 1)):
+        t0 = time.perf_counter()
+        dbs[what] = write_corpus(os.path.join(root, what, "store"), n_pages=HOLD_PAGES,
+                                 seed=seed, device=device, workers=workers,
+                                 log=lambda m, w=what: print(f"# build hold {w}: {m}", flush=True))
+        out[f"{what}_s"] = round(time.perf_counter() - t0, 1)
+    got, want = dbs["parallel"], dbs["one_process"]
+    dg, dw = _store_digests(got), _store_digests(want)
+    bars = {"doc_magnitude": 1e-12, "doc_rank": 1e-6}
+    worst = {}
+    for spec in TABLE_SPECS:
+        if spec.name not in bars:
+            if dg[spec.name] != dw[spec.name]:
+                raise RuntimeError(f"build hold: table {spec.name} differs")
+            continue
+        a, b = dict(got.tables[spec.name].items()), dict(want.tables[spec.name].items())
+        if a.keys() != b.keys():
+            raise RuntimeError(f"build hold: {spec.name} keys differ")
+        err = 0.0
+        for k, row in b.items():
+            if list(a[k]) != list(row):
+                raise RuntimeError(f"build hold: {spec.name}[{k}] fields differ")
+            for c, v in row.items():
+                err = max(err, abs(a[k][c] - v) / abs(v) if v else abs(a[k][c]))
+        if err > bars[spec.name]:
+            raise RuntimeError(f"build hold: {spec.name} off by {err} > {bars[spec.name]}")
+        worst[spec.name] = err
+    for fn in ("docs.pack", "docs.pki"):
+        with open(os.path.join(got.root, fn), "rb") as fa, open(os.path.join(want.root, fn),
+                                                                "rb") as fb:
+            if fa.read() != fb.read():
+                raise RuntimeError(f"build hold: {fn} differs")
+    sg, sw = build_snapshot(got), build_snapshot(want)
+    if sg.doc_hashes != sw.doc_hashes or sg.word_hashes != sw.word_hashes:
+        raise RuntimeError("build hold: the snapshots' census differs")
+    for sec in ("title", "body"):
+        for f in ("post_offsets", "doc_ids", "weights", "pos_offsets", "positions"):
+            if not np.array_equal(getattr(sg.section(sec), f), getattr(sw.section(sec), f)):
+                raise RuntimeError(f"build hold: snapshot {sec}.{f} differs")
+    for f, rtol in (("mag_title", 1e-12), ("mag_body", 1e-12), ("pagerank", 1e-6)):
+        if not np.allclose(getattr(sg, f), getattr(sw, f), rtol=rtol, atol=0):
+            raise RuntimeError(f"build hold: snapshot {f} off by more than {rtol}")
+    got.close()
+    want.close()
+    shutil.rmtree(root, ignore_errors=True)
+    out.update(tables_equal=len(TABLE_SPECS) - len(bars), worst_rel=worst,
+               docs=sg.n_docs, postings=sg.body.n_postings + sg.title.n_postings)
+    return out
+
+
+def gates_child(seed: int, device: str = "cuda") -> dict:
+    """Phase 20 in a process of its own: the 2M tier's path on phase 3's
+    100k corpus. The 2M corpus does not fit the smoke's time limit, so the
+    gates come down to the corpus instead (a cut of scale): HOT_MAX_DPAD
+    and FWD_DEV_MAX_DPAD to GATES_DPAD (below its D_pad), SEGREGATE_MIN_DOCS
+    to GATES_SEGREGATE_DOCS (at most its doc count). The index then has no
+    hot-term cache and keeps ft/fw/fj on the host; a SearchServer
+    (batching on, segregate="auto") segregates phrase-class batches, and
+    its answers to the serving phase's mix are 200 JSON equal to the
+    default-gate engine's plain path (ties aside), K1 and K2 launched;
+    phrases under a custom blend take the sparse lane, whose first call
+    uploads ft/fw/fj once (a second call uploads nothing), its top-50
+    equal to the plain path."""
+    import numpy as np
+    import torch
+
+    from spaghettisearch_tpu_torch.bench import corpus_root, load_bench_corpus
+    from spaghettisearch_tpu_torch.corpus import bench_queries
+    from spaghettisearch_tpu_torch.models.blended import BlendedRanker
+    from spaghettisearch_tpu_torch.retrieval import device_index
+    from spaghettisearch_tpu_torch.retrieval import engine as eng_mod
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
+    from spaghettisearch_tpu_torch.serve.server import SearchServer
+
+    db, snap = load_bench_corpus(corpus_root(PAGES))
+    saved = device_index.HOT_MAX_DPAD, device_index.FWD_DEV_MAX_DPAD, eng_mod.SEGREGATE_MIN_DOCS
+    device_index.HOT_MAX_DPAD = device_index.FWD_DEV_MAX_DPAD = GATES_DPAD
+    eng_mod.SEGREGATE_MIN_DOCS = GATES_SEGREGATE_DOCS
+    eng = QueryEngine(db, snapshot=snap, device=device)
+    idx = eng.index
+
+    def on_host(sec) -> bool:
+        return all(isinstance(getattr(sec.fwd, n), np.ndarray) for n in ("ft", "fw", "fj"))
+
+    if not (idx.n_docs_padded > GATES_DPAD and idx.n_docs >= GATES_SEGREGATE_DOCS):
+        raise RuntimeError(f"gates: the corpus does not cross the gates ({idx.n_docs_padded})")
+    if idx.hot_body_w is not None or not (on_host(idx.title) and on_host(idx.body)):
+        raise RuntimeError("gates: a hot-term cache, or ft/fw/fj on the device")
+    if not eng.model.supports_mixed(idx) or not eng.class_batching_pays():
+        raise RuntimeError("gates: no fused lane, or the engine declines segregation")
+    t0 = time.perf_counter()
+    eng.warmup()
+    eng.prewarm_hydration()
+    eng.prewarm_wordlist()
+    warm_s = time.perf_counter() - t0
+    queries = bench_queries(snap, QUERIES, seed=seed + 1, phrase_every=4, db=db)
+    kw_only = [q for q in queries if '"' not in q][:32]
+    classes = []
+    rank_async = eng.rank_async
+
+    def recording(parsed, *a, **k):
+        classes.append(sorted({bool(p.phrase_hashes) for p in parsed}))
+        return rank_async(parsed, *a, **k)
+
+    eng.rank_async = recording
+    reset_launches()
+    server = SearchServer(eng, batching=True, segregate="auto")
+    host, port = server.start_background(port=0)
+    try:
+        active = server.batcher._segregate_now()
+        results, wall = send_jobs(f"http://{host}:{port}", [("post", q) for q in queries]
+                                  + [("get", q) for q in kw_only], CLIENTS)
+        st = server.batcher.stats
+        batches, ph_batches = st.batches, st.ph_batches
+    finally:
+        server.shutdown()
+        eng.rank_async = rank_async
+    served = launches()
+    if not active or min(served["membership"], served["mixed"]) == 0:
+        raise RuntimeError(f"gates: segregation {active}, launches {served}")
+    if not (on_host(idx.title) and on_host(idx.body)):
+        raise RuntimeError("gates: the fused and keyword lanes uploaded ft/fw/fj")
+    device_index.HOT_MAX_DPAD, device_index.FWD_DEV_MAX_DPAD, eng_mod.SEGREGATE_MIN_DOCS = saved
+    ref_eng = QueryEngine(db, snapshot=snap, device=device)
+    if ref_eng.index.hot_body_w is None:
+        raise RuntimeError("gates: the default-gate engine has no hot-term cache")
+    ref_q = queries + kw_only
+    with plain_kernels():
+        ref = ref_eng.query_batch(ref_q)
+    got = [results[("post", q)][1] for q in queries] + [results[("get", q)][1] for q in kw_only]
+    n_hits = check_ranked(ref_q, got, ref, "past the gates")
+    del ref_eng
+    # the sparse lane: phrases under a custom blend read ft/fj on the device
+    phrases = [parse_query(q) for q in queries if '"' in q][:16]
+    live = (snap, idx, BlendedRanker(w_title=0.5))
+    puts = []
+    put = device_index._put
+    device_index._put = lambda a, dev: puts.append(tuple(a.shape)) or put(a, dev)
+    try:
+        with count_matcher_calls() as matcher:
+            s1, i1 = eng.rank(phrases, live=live)
+            n_first = len(puts)
+            s2, i2 = eng.rank(phrases, live=live)
+    finally:
+        device_index._put = put
+    if n_first != 6 or len(puts) != 6 or matcher[0] < 2 or on_host(idx.body):
+        raise RuntimeError(f"gates: uploads {puts}, matcher calls {matcher[0]}")
+    with plain_kernels():
+        ws, wi = eng.rank(phrases, live=live)
+    to = lambda x: torch.as_tensor(np.asarray(x))  # noqa: E731
+    if not (same_topk(to(s1), to(i1), to(ws), to(wi), rtol=1e-6, atol=1e-6)
+            and same_topk(to(s2), to(i2), to(ws), to(wi), rtol=1e-6, atol=1e-6)):
+        raise RuntimeError("gates: the sparse lane's top-50 differs from the plain path")
+    db.close()
+    return {"d_pad": idx.n_docs_padded, "segregation": "active" if active else "inactive",
+            "batches": batches, "ph_batches": ph_batches,
+            "mixed_class_batches": sum(1 for c in classes if len(c) > 1),
+            "answers": len(results), "results": n_hits, "warm_s": round(warm_s, 1),
+            "req_per_s": round(len(results) / wall, 1), "launches": served,
+            "fwd_uploads": n_first, "sparse_matcher_calls": matcher[0],
+            "index_device_bytes": idx.device_bytes()}
+
+
 def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
     """Phase 16 (see the module docstring); each of `beside` is called in
     this process while the answer-gated modes run. -> each job's result."""
     def start(name: str, mode: str, *flags: str):
         """Start a mode; its output goes to build/bench_{name}.out and .err
         (files, so that no pipe fills while another mode is awaited)."""
-        cmd = ([sys.executable, "-c", SCALE_SNIPPET] if mode == "scale1m" else
-               [sys.executable, "-m", "spaghettisearch_tpu_torch.bench", "--mode", mode,
-                "--seed", str(seed), *flags])
+        cmd = ([sys.executable, "-c", CHILD_SNIPPETS[mode], str(seed)] if mode in CHILD_SNIPPETS
+               else [sys.executable, "-m", "spaghettisearch_tpu_torch.bench", "--mode", mode,
+                     "--seed", str(seed), *flags])
         log = os.path.join(HERE, "build", f"bench_{name}")
         with open(log + ".out", "wb") as out, open(log + ".err", "wb") as err:
             proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
@@ -1446,7 +1673,8 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
             *(start(f"parity_rare_{k}", "parity_rare", *pages, "--families", ",".join(fams))
               for k, fams in enumerate(BENCH_RARE_SPLIT)),
             start("sparse2m", "sparse2m", *pages, "--queries", str(BENCH_SPARSE_QUERIES)),
-            start("scale1m", "scale1m")]
+            start("scale1m", "scale1m"), start("build_hold", "build_hold"),
+            start("gates", "gates")]
     try:
         t0 = time.perf_counter()
         for fn in beside:
@@ -1483,6 +1711,12 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
         raise RuntimeError(f"scale1m: {r}")
     say(f"# scale1m: index {r['index_device_bytes']} device bytes, max_memory_allocated "
         f"{r['max_memory_allocated']} B, top-10 of a B=256 batch equal to the plain path ({smi})")
+    r = reps["build_hold"]
+    say(f"# phase 19, build hold: {HOLD_PAGES} pages, {r['workers']} workers "
+        f"{r['parallel_s']} s, one process {r['one_process_s']} s; {r['tables_equal']} tables' "
+        f"digests, the docs pack and the snapshot equal; worst relative {r['worst_rel']} ({smi})")
+    r = reps["gates"]
+    say(f"# phase 20, past the gates at 100k: {json.dumps(r)} ({smi})")
     r = reps["serve"] = finish(start("serve", "serve", *pages, "--routeMix"))
     if (r["non_200"] or r["protocol_errors"] or not r["contract"] or not r["routes"]
             or set(r["routes"]) != {"wordlist", "get_query", "post_query"}):
@@ -1500,7 +1734,7 @@ SPARSE_DOCS = 250_000
 #: phase 17: the probes of experiments/ ported to the card, each in a
 #: process of its own beside phase 16's oracle modes, at their originals'
 #: sizes, except phrase_delta (its original's crawl-built 1M corpus takes
-#: ~46 minutes to build, so it runs on phase 3's 100k corpus) and sparse
+#: ~14.5 minutes to build, so it runs on phase 3's 100k corpus) and sparse
 #: (SPARSE_DOCS)
 PROBES = (("fused2", "torch_fused2_probe.py", ()),
           ("phrase_delta", "torch_phrase_delta_probe.py", (str(PAGES),)),
@@ -1742,7 +1976,7 @@ def main() -> int:
     atexit.register(soak.kill)
     atexit.register(sharded.kill)
 
-    from spaghettisearch_tpu_torch.bench import build_bench_corpus, corpus_root, load_bench_corpus
+    from spaghettisearch_tpu_torch.bench import corpus_root, load_bench_corpus
     from spaghettisearch_tpu_torch.corpus import bench_queries
     from spaghettisearch_tpu_torch.models.blended import BlendedRanker
     from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
@@ -1755,7 +1989,19 @@ def main() -> int:
     t0 = time.perf_counter()
     root = corpus_root(PAGES)  # where the bench modes of phase 16 look for it
     shutil.rmtree(root, ignore_errors=True)
-    build_bench_corpus(root, n_pages=PAGES, seed=args.seed, device="cuda")
+    # in a process of its own (the bench's build, as ensure_bench_corpus
+    # runs it): its workers fork from a process that has not touched CUDA
+    build = subprocess.run(
+        [sys.executable, "-m", "spaghettisearch_tpu_torch.bench", "--device", "cuda",
+         "--seed", str(args.seed), "--build-corpus", str(PAGES), "30000", root],
+        cwd=HERE, capture_output=True, text=True,
+    )
+    for line in build.stderr.splitlines():
+        if line.startswith("# corpus:"):
+            say(line)
+    if build.returncode != 0:
+        raise RuntimeError(f"the corpus build failed ({build.returncode}):\n"
+                           f"{build.stderr[-4000:]}")
     db, snap = load_bench_corpus(root)
     t_corpus = time.perf_counter() - t0
     engine = QueryEngine(db, snapshot=snap, device="cuda")

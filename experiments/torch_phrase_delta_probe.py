@@ -7,7 +7,7 @@ the fused mixed kernel (K2), on the crawl-built benchmark corpus.
 
 n is the corpus's page count (the original's default, 1,000,000; the
 corpus is built by the port's bench under build/bench/corpus{n//1000}k
-when missing, which at 1M takes ~46 minutes on the GPU host). The
+when missing, which at 1M takes ~14.5 minutes on an 8-core H100 host). The
 original's batch: bench_queries(snap, 256, phrase_every=8), the first 128
 parsed, Q=4, P=16, rows sorted phrase-first (np.lexsort((-qn, -qnb, -pn))),
 topics off. Runs, timed by CUDA events on the card (host clock with

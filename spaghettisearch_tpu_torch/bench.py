@@ -128,6 +128,19 @@ def _corpus_complete(root: str, want: dict) -> bool:
     )
 
 
+def host_resources(path: str) -> dict:
+    """The host a build runs on: MemTotal, the cores this process may use
+    and the free disk under `path`."""
+    mem = None
+    with open("/proc/meminfo", encoding="ascii") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                mem = int(line.split()[1]) * 1024
+    os.makedirs(path, exist_ok=True)
+    return {"mem_total_bytes": mem, "cores": len(os.sched_getaffinity(0)),
+            "disk_free_bytes": shutil.disk_usage(path).free}
+
+
 def build_bench_corpus(
     root: str,
     n_pages: int = 100_000,
@@ -139,7 +152,11 @@ def build_bench_corpus(
     """Build (or reuse) the seeded benchmark corpus under `root`:
     <root>/store (the tables and the page cache), <root>/snapshot (the saved
     columnar arrays) and <root>/BUILT.json, written last and atomically.
-    PageRank runs on `device`. Returns root."""
+    PageRank runs on `device`; as many processes as this process may use
+    cores index the pages (corpus.write_corpus). Each step's seconds and
+    the peak RSS are logged. Returns root."""
+    import resource
+
     from .corpus import write_corpus
     from .index.persist import save_snapshot
     from .index.snapshot import build_snapshot
@@ -155,20 +172,32 @@ def build_bench_corpus(
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root, exist_ok=True)
+    host = host_resources(root)
+    workers = host["cores"]
+    say(f"host: MemTotal {host['mem_total_bytes']} B, {workers} cores, "
+        f"{host['disk_free_bytes']} B free disk")
     t0 = time.perf_counter()
     db = write_corpus(os.path.join(root, "store"), n_pages=n_pages, n_vocab=n_vocab,
-                      seed=seed, log=say, device=str(device))
+                      seed=seed, log=say, device=str(device), workers=workers)
     t1 = time.perf_counter()
     snap = build_snapshot(db)
-    say(f"snapshot built in {time.perf_counter() - t1:.1f}s ({snap.n_docs} docs, "
+    t_snap = time.perf_counter() - t1
+    say(f"snapshot: built in {t_snap:.1f}s ({snap.n_docs} docs, "
         f"{snap.n_words} words, {snap.body.n_postings + snap.title.n_postings} postings)")
+    t1 = time.perf_counter()
     save_snapshot(snap, os.path.join(root, "snapshot"))
-    db.flush()
     db.close()
+    t_save = time.perf_counter() - t1
+    kids = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1024
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    say(f"save: snapshot saved and store closed in {t_save:.1f}s; peak RSS {rss:.0f} MB "
+        f"(largest child process {kids:.0f} MB)")
     tmp = marker + ".tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump({**params, "docs": snap.n_docs, "words": snap.n_words,
-                   "seconds": round(time.perf_counter() - t0, 1)}, f)
+                   "seconds": round(time.perf_counter() - t0, 1), "workers": workers,
+                   "snapshot_s": round(t_snap, 1), "save_s": round(t_save, 1),
+                   "peak_rss_mb": round(rss), "host": host}, f)
     os.replace(tmp, marker)
     say(f"total {time.perf_counter() - t0:.1f}s -> {root}")
     return root
@@ -437,13 +466,15 @@ def bench_index(n_pages: int = 1000) -> dict:
 # ---------------------------------------------------------------------- #
 
 
-def rank_vs_oracle(eng, db, snap, queries: list[str], topic: bool = False):
+def rank_vs_oracle(eng, db, snap, queries: list[str], topic: bool = False,
+                   oracle_procs: int = 1):
     """Rank `queries` in 64-query batches through eng.rank (top-50) and
     through oracle.retrieve (with compute_topic_probs(fixed=True) when
-    `topic`). -> (got, want, oracle seconds): per query [(doc hash, score)]."""
-    from .oracle import retrieve as oracle_retrieve
+    `topic`). -> (got, want, oracle seconds): per query [(doc hash, score)].
+    With oracle_procs > 1 the oracle's queries are spread over that many
+    forked processes (they read the open store; the answers are the
+    serial run's) and its seconds are the wall time of that spread."""
     from .retrieval.engine import parse_query
-    from .retrieval.topics import compute_topic_probs
 
     got_all: list[list[tuple[str, float]]] = []
     want_all: list[list[tuple[str, float]]] = []
@@ -458,11 +489,44 @@ def rank_vs_oracle(eng, db, snap, queries: list[str], topic: bool = False):
                 for s, d in zip(scores[row], ids[row])
                 if s != -np.inf and not np.isnan(s)
             ])
-            tp = compute_topic_probs(db, parsed[row].keyword_hashes, fixed=True) if topic else None
-            t0 = time.perf_counter()
-            want_all.append(list(oracle_retrieve(db, q, topic_probs=tp)))
-            oracle_s += time.perf_counter() - t0
+            if oracle_procs <= 1:
+                t0 = time.perf_counter()
+                want_all.append(_oracle_answer(db, q, parsed[row].keyword_hashes, topic))
+                oracle_s += time.perf_counter() - t0
+    if oracle_procs > 1:
+        import concurrent.futures as cf
+        import multiprocessing
+
+        _ORACLE.update(db=db, queries=queries, topic=topic)
+        t0 = time.perf_counter()
+        try:
+            with cf.ProcessPoolExecutor(oracle_procs,
+                                        mp_context=multiprocessing.get_context("fork")) as pool:
+                want_all = list(pool.map(_oracle_query, range(len(queries)),
+                                         chunksize=max(1, len(queries) // (4 * oracle_procs))))
+        finally:
+            _ORACLE.clear()
+        oracle_s = time.perf_counter() - t0
     return got_all, want_all, oracle_s
+
+
+def _oracle_answer(db, query: str, keyword_hashes: list[str], topic: bool) -> list:
+    from .oracle import retrieve as oracle_retrieve
+    from .retrieval.topics import compute_topic_probs
+
+    tp = compute_topic_probs(db, keyword_hashes, fixed=True) if topic else None
+    return list(oracle_retrieve(db, query, topic_probs=tp))
+
+
+# the store and queries that rank_vs_oracle's forked oracle processes read
+_ORACLE: dict = {}
+
+
+def _oracle_query(i: int) -> list:
+    from .retrieval.engine import parse_query
+
+    q = _ORACLE["queries"][i]
+    return _oracle_answer(_ORACLE["db"], q, parse_query(q).keyword_hashes, _ORACLE["topic"])
 
 
 def exact_order(got_all, want_all) -> float:
@@ -497,11 +561,12 @@ def divergences(got_all, want_all) -> tuple[int, int]:
 
 
 def bench_parity(n_pages: int = 100_000, n_queries: int = 1000, device="cuda",
-                 seed: int = 0) -> dict:
+                 seed: int = 0, oracle_procs: int = 1) -> dict:
     """recall@10 of the engine against the oracle on the crawl-built index
     the QPS modes run on, over the keyword + phrase mix (a mined phrase in
     every 3rd query); also exact order at 10 and 50, the top-50 divergences
-    and how many are tie-explained, and the largest relative score error."""
+    and how many are tie-explained, and the largest relative score error.
+    The oracle's queries run in `oracle_procs` processes (rank_vs_oracle)."""
     from .evaluation import compare_rankings
     from .retrieval.engine import QueryEngine
 
@@ -509,7 +574,8 @@ def bench_parity(n_pages: int = 100_000, n_queries: int = 1000, device="cuda",
     eng = QueryEngine(db, snapshot=snap, device=device)
     queries = bench_queries(snap, n_queries, seed=9, phrase_every=3, db=db)
     t0 = time.perf_counter()
-    got_all, want_all, oracle_s = rank_vs_oracle(eng, db, snap, queries)
+    got_all, want_all, oracle_s = rank_vs_oracle(eng, db, snap, queries,
+                                                 oracle_procs=oracle_procs)
     wall = time.perf_counter() - t0
     db.close()
     report = compare_rankings(got_all, want_all, k=10)
@@ -526,6 +592,7 @@ def bench_parity(n_pages: int = 100_000, n_queries: int = 1000, device="cuda",
         "queries": report.queries,
         "docs": snap.n_docs,
         "oracle_s": round(oracle_s, 3),
+        "oracle_procs": oracle_procs,
         "engine_s": round(wall - oracle_s, 3),
     }
 
@@ -715,13 +782,70 @@ def bench_mixed(n_pages: int = 100_000, n_batches: int = 12, device="cuda",
     }
 
 
+def tier_kernels(idx, snap, device) -> dict:
+    """K1 and K2 on an index at the engine's arguments: a B=128 Q=4 keyword
+    batch (the doc-sorted body bound when the layout has it) and a B=128
+    Q=4 P=16 mixed batch (ops/kernels/check.py, the batches chip_smoke.py
+    times at 100k). Each: ms per wrapper call (CUDA events on a card) and
+    the bound on this data (check.bound_ms: bytes over 3.35 TB/s or
+    operations over 67 TOP/s)."""
+    from .ops.kernels import check
+
+    df = snap.body.df(range(snap.n_words)).astype("float64")
+    counts = idx.has_zero_weight  # the engine's emit_counts
+    doc_sort = idx.body.tmax_blocks is not None
+    kb = check.to_device(check.keyword_batch(idx, 128, 4, seed=4, df=df), device)
+    cases = {"K1": (kb, False, lambda: check.run_k1(idx, kb, counts, doc_sort), "B=128 Q=4")}
+    if idx.body.posT is not None and idx.title.posT is not None:
+        mb = check.to_device(check.mixed_batch(idx, 128, 4, 16, seed=1, df=df, snap=snap), device)
+        cases["K2"] = (mb, True, lambda: check.run_k2(idx, mb, counts), "B=128 Q=4 P=16")
+    out = {}
+    for name, (batch, phrases, fn, shape) in cases.items():
+        sweeps = [(getattr(idx, s).fwd.ftT, check.row_terms(batch, s, phrases))
+                  for s in ("title", "body")]
+        bound, by = check.bound_ms(sweeps, idx.n_words, 128, idx.n_docs_padded,
+                                   4 if counts else 2)
+        out[name] = {"ms": round(check.time_on(fn, device), 4), "bound_ms": round(bound, 4),
+                     "bound_by": by, "shape": shape, "d_pad": idx.n_docs_padded,
+                     "body_T": int(idx.body.fwd.ftT.shape[0])}
+    return out
+
+
+def residency(idx) -> dict:
+    """Where the gates put the index (device_index.py): the hot-term cache,
+    the position planes against POS_T_BUDGET_BYTES, whether the doc-major
+    ft/fw/fj are on the host, and the device bytes."""
+    from .retrieval import device_index as di
+
+    planes = {s: getattr(idx, s).posT for s in ("title", "body")}
+    return {
+        "d_pad": idx.n_docs_padded,
+        "hot_cache": idx.hot_body_map is not None,
+        "hot_body_w_none": idx.hot_body_w is None,
+        "pos_dense": idx.pos_dense,
+        "posT_dtype": {s: None if p is None else str(p.dtype) for s, p in planes.items()},
+        "posT_bytes": {s: 0 if p is None else p.numel() * p.element_size()
+                       for s, p in planes.items()},
+        "posT_budget_bytes": di.POS_T_BUDGET_BYTES,
+        "fwd_on_host": {s: all(isinstance(getattr(getattr(idx, s).fwd, n), np.ndarray)
+                               for n in ("ft", "fw", "fj")) for s in ("title", "body")},
+        "hot_max_dpad": di.HOT_MAX_DPAD,
+        "fwd_dev_max_dpad": di.FWD_DEV_MAX_DPAD,
+        "index_device_bytes": idx.device_bytes(),
+    }
+
+
 def bench_residency(n_pages: int = 2_000_000, device="cuda", seed: int = 0) -> dict:
     """The engine at full single-device residency on the crawl-built corpus
     of n_pages: whether the position-plane budget gate kept the fused mixed
-    lane live, the layout the gates chose, and mixed / keyword 128-query
-    batches timed with two batches in flight."""
+    lane live, the layout the gates chose (residency()), mixed / keyword
+    128-query batches timed with two batches in flight, the device memory
+    peak, and K1 and K2 per call beside their bounds (tier_kernels())."""
     from .retrieval.engine import QueryEngine, parse_query
 
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     db, snap = load_bench_corpus(ensure_bench_corpus(n_pages, device=device, seed=seed))
     t0 = time.perf_counter()
     eng = QueryEngine(db, snapshot=snap, device=device)
@@ -755,8 +879,13 @@ def bench_residency(n_pages: int = 2_000_000, device="cuda", seed: int = 0) -> d
     mixed_ms = pipelined(batches)
     kw_ms = pipelined([kw_batch])
     idx = eng.index
+    placed = residency(idx)
+    kernels = tier_kernels(idx, snap, device)
     db.close()
     return {
+        **placed,
+        "kernels": kernels,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device) if on_card else None,
         "metric": f"mixed_qps_{n_pages // 1000}k_docs_resident",
         "value": round(128e3 / mixed_ms, 1),
         "unit": "qps",
@@ -765,8 +894,6 @@ def bench_residency(n_pages: int = 2_000_000, device="cuda", seed: int = 0) -> d
         "kw128_pipelined_ms": round(kw_ms, 2),
         "device_index_build_s": round(build_s, 1),
         "doc_sort": idx.doc_perm is not None,
-        "hot_cache": idx.hot_body_map is not None,
-        "index_device_bytes": idx.device_bytes(),
         "sparse_fallback": "see sparse2m (own process)",
     }
 
@@ -873,6 +1000,18 @@ def _wait_up(proc, log_path: str, port: int, deadline: float) -> None:
     raise RuntimeError("server did not answer /healthz; see " + log_path)
 
 
+def _segregation(log_path: str) -> str | None:
+    """The word after the server's start-up line on phrase-class
+    segregation (cli/server.py SEGREGATION_LINE): "active" or "inactive"."""
+    from .cli.server import SEGREGATION_LINE
+
+    with open(log_path, encoding="utf-8", errors="replace") as f:
+        for line in f:
+            if line.startswith(SEGREGATION_LINE):
+                return line[len(SEGREGATION_LINE):].split()[0]
+    return None
+
+
 def bench_serve(
     n_pages: int = 100_000,
     duration_s: float = 20.0,
@@ -973,6 +1112,7 @@ def bench_serve(
         client.close()
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as resp:
             stats = json.loads(resp.read())
+        segregation = _segregation(log_path)
         mb = stats.get("microbatcher") or {}
         return {
             "metric": f"serve_http_qps_{n_pages // 1000}k_docs_full_contract",
@@ -991,8 +1131,10 @@ def bench_serve(
             "fetchers": n_fetchers or 1,  # the server CLI's default
             "server_up_s": round(up_s, 1),
             "mean_batch": mb.get("mean_batch"),
-            # phrase-class segregation (automatic at >= 2^19 docs)
+            # phrase-class segregation (automatic at >= 2^19 docs): the
+            # batcher's setting, and the server's start-up line on it
             "segregate": mb.get("segregate"),
+            "segregation": segregation,
             "ph_batches": mb.get("ph_batches"),
             "batches": mb.get("batches"),
             "rank_device_ms": (stats.get("rank.device") or {}).get("mean_ms"),
@@ -1225,6 +1367,10 @@ def _opt(v, default):
     return default if v is None else v
 
 
+def _cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
 #: mode -> (run(args, device) -> dict, runs in this process)
 MODES = {
     "headline": (lambda a, d: bench_headline(False, d, a.seed), True),
@@ -1233,9 +1379,9 @@ MODES = {
     "parity": (lambda a, d: bench_parity(_opt(a.pages, 100_000), _opt(a.queries, 1000), d,
                                          a.seed), True),
     "parity1m": (lambda a, d: bench_parity(_opt(a.pages, 1_000_000), _opt(a.queries, 256), d,
-                                           a.seed), True),
+                                           a.seed, _cores()), True),
     "parity2m": (lambda a, d: bench_parity(_opt(a.pages, 2_000_000), _opt(a.queries, 128), d,
-                                           a.seed), True),
+                                           a.seed, _cores()), True),
     "parity_rare": (lambda a, d: bench_parity_rare(
         _opt(a.pages, 100_000), d, a.seed,
         a.families.split(",") if a.families else RARE_FAMILIES), True),

@@ -15,9 +15,11 @@ through this package's indexer (index/indexer.py index_page, a copy of the
 JAX package's) inside one bulk session, in page order, with a fixed
 Last-Modified of 2026-01-01; then this package's update_pagerank (the
 reference model, on `device`) and the term weighting pass
-(ops/weighting.py). So the store holds what bench.py's does, anchor text
-included: a link's text is a body word of the linking page and a title
-posting of its target at the -100 sentinel position.
+(ops/weighting.py). Into a directory it runs in several processes
+(index/parallel_build.py), which write the same store. So the store holds
+what bench.py's does, anchor text included: a link's text is a body word
+of the linking page and a title posting of its target at the -100
+sentinel position.
 
 `bench_queries` is bench.py's query mix over a built corpus (df-weighted
 keywords, a 2-gram mined from a cached page in every `phrase_every`-th
@@ -34,7 +36,9 @@ in the same order), returned as this package's IndexSnapshot.
 
 from __future__ import annotations
 
+import os
 import random
+import resource
 import time
 from datetime import datetime, timezone
 
@@ -105,18 +109,36 @@ def write_corpus(
     seed: int = 0,
     log=None,
     device: str = "cuda",
+    workers: int | None = None,
 ) -> Database:
     """Build the seeded corpus into a fresh Database at `root` (None = in
     memory): index every rendered page, run PageRank on `device`, weight
-    the terms. Returns the open Database."""
+    the terms. Returns the open Database.
+
+    `workers` processes index the pages (index/parallel_build.py; the same
+    store). It defaults to the cores this process may use when `root` is a
+    directory; an in-memory store, and workers=1, take the one-process loop
+    below. Each step's seconds and the peak RSS go to `log`."""
     say = log or (lambda msg: None)
+    if workers is None:
+        workers = len(os.sched_getaffinity(0)) if root is not None else 1
+    if workers > 1 and root is None:
+        raise ValueError("write_corpus: a build in several processes needs a root directory")
     t0 = time.perf_counter()
     pages = render_pages(n_pages, n_vocab, seed)
-    say(f"{n_pages} pages rendered in {time.perf_counter() - t0:.1f}s")
-    db = Database(root)
-    db.topic_meta.set("General", {"numPages": float(n_pages), "wordCount": 1.0})
-    db.topic_meta.set("Science", {"numPages": float(n_pages // 2), "wordCount": 1.0})
+    say(f"render: {n_pages} pages in {time.perf_counter() - t0:.1f}s")
+    topics = [("General", {"numPages": float(n_pages), "wordCount": 1.0}),
+              ("Science", {"numPages": float(n_pages // 2), "wordCount": 1.0})]
     ts = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    if workers > 1:
+        from .index.parallel_build import build_store
+
+        db, _ = build_store(root, [(BASE_URL + path, raw) for path, raw in pages.items()], ts,
+                            topics, workers, device=device, log=say)
+        return db
+    db = Database(root)
+    for name, row in topics:
+        db.topic_meta.set(name, row)
     t1 = time.perf_counter()
     with db.bulk():
         for i in range(n_pages):
@@ -124,14 +146,18 @@ def write_corpus(
             if (i + 1) % 20_000 == 0:
                 say(f"indexed {i + 1}/{n_pages} pages")
     t_index = time.perf_counter() - t1
-    say(f"{n_pages} pages indexed in {t_index:.1f}s ({n_pages / max(t_index, 1e-9):.1f} pages/s)")
+    say(f"index: {n_pages} pages in {t_index:.1f}s ({n_pages / max(t_index, 1e-9):.1f} pages/s, "
+        "one process, the bulk flush included)")
+    t1 = time.perf_counter()
     pr = update_pagerank(db, device=device)
     say(f"pagerank ({pr['nodes']} nodes, {pr['edges']} edges, {pr['iterations']} "
-        f"iterations on {device}) done in {time.perf_counter() - t0:.1f}s")
+        f"iterations on {device}) in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
     update_term_weights(db, "title")
     update_term_weights(db, "body")
     db.flush()
-    say(f"term weighting done in {time.perf_counter() - t0:.1f}s")
+    say(f"term weighting in {time.perf_counter() - t1:.1f}s; peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f} MB")
     return db
 
 

@@ -484,6 +484,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def row_terms(batch: dict, section: str, phrases: bool = False) -> list[set]:
+    """Per row, the distinct query terms a section's sweep matches: the
+    keyword columns below the row's active count (qnb for the body under
+    the hot split, qn otherwise), and with `phrases` the row's valid phrase
+    terms (bound_ms's rows)."""
+    tq = batch["term_ids"].cpu().numpy()
+    cold = batch["split"] and section == "body"
+    active = (batch["qnb"] if cold else batch["qn"]).cpu().numpy()
+    rows = [{int(t) for t in tq[i, : active[i]] if t >= 0} for i in range(len(tq))]
+    if phrases:
+        ids, valid = batch["ph_ids"].cpu().numpy(), batch["ph_valid"].cpu().numpy()
+        for i, r in enumerate(rows):
+            r.update(int(t) for t, v in zip(ids[i], valid[i]) if v > 0 and t >= 0)
+    return rows
+
+
 def bound_ms(sweeps: list, n_words: int, b: int, d: int, n_out: int,
              extra_bytes: int = 0) -> tuple[float, str]:
     """The least time the card could take for a membership call at batch b
