@@ -12,8 +12,10 @@ Phases (any failure raises and the script exits non-zero):
   3. corpus: the seeded benchmark corpus built by the port's bench
      (bench.py build_bench_corpus, in a process of its own: corpus.py's
      pages through the indexer in as many processes as the host has cores,
-     index/parallel_build.py, PageRank on the card, term weights) into
-     build/bench/corpus100k, its store, saved snapshot and BUILT.json,
+     index/parallel_build.py, PageRank on the card, term weights, the
+     snapshot assembled from the build's key buckets and saved
+     uncompressed) into build/bench/corpus100k, its store, saved snapshot
+     and BUILT.json,
      where phase 16's bench modes find it; each build step's seconds; the
      device index;
   4. kernels vs their plain versions on the card at the main path's shapes,
@@ -181,6 +183,9 @@ Phases (any failure raises and the script exits non-zero):
      both: every table's order-free digest equal, but doc_magnitude and
      doc_rank (sums in the store's row order) within 1e-12 and 1e-6
      relative, the docs pack's files byte for byte, the snapshots' arrays;
+     the parallel build's own snapshot (assembled from its key buckets)
+     equal in every field, exactly, to build_snapshot of its store, and
+     its uncompressed save read back through load_snapshot equal to it;
      each build's seconds per step;
  20. the 2M tier's path on phase 3's corpus (in phase 16's window, a
      process of its own; the 2M corpus does not fit the smoke's time
@@ -1434,6 +1439,29 @@ def _store_digests(db) -> dict:
     return out
 
 
+def _snapshot_differs(a, b) -> list[str]:
+    """The fields in which two snapshots differ (np.array_equal, dtypes
+    included; no tolerance)."""
+    import numpy as np
+
+    out = [f for f in ("doc_hashes", "word_hashes", "doc_id", "word_id", "categories")
+           if getattr(a, f) != getattr(b, f)]
+    for sec in ("title", "body"):
+        x, y = a.section(sec), b.section(sec)
+        out += [f"{sec}.{f}" for f in ("post_offsets", "doc_ids", "weights", "pos_offsets",
+                                       "positions")
+                if getattr(x, f).dtype != getattr(y, f).dtype
+                or not np.array_equal(getattr(x, f), getattr(y, f))]
+        out += [f"{sec}.{f}" for f in ("n_postings", "max_df", "max_positions")
+                if getattr(x, f) != getattr(y, f)]
+    for f in ("mag_title", "mag_body", "pagerank"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or x is not None and (
+                x.dtype != y.dtype or not np.array_equal(x, y)):
+            out.append(f)
+    return out
+
+
 def build_hold_child(seed: int, device: str = "cuda") -> dict:
     """Phase 19 in a process of its own: the benchmark corpus of HOLD_PAGES
     pages built in several processes (the cores this process may use) and
@@ -1443,10 +1471,15 @@ def build_hold_child(seed: int, device: str = "cuda") -> dict:
     row order (PERF.md: two one-process builds differ there too), within
     1e-12 and 1e-6 relative; the docs pack's files equal byte for byte;
     the snapshots' arrays equal (magnitudes and ranks at the same bars).
+    The parallel build's own snapshot, assembled from its key buckets,
+    equal in every field (np.array_equal) to build_snapshot of its store,
+    and its uncompressed save read back through load_snapshot equal to it.
     Each build's seconds per step are printed."""
     import numpy as np
 
-    from spaghettisearch_tpu_torch.corpus import write_corpus
+    from spaghettisearch_tpu_torch.corpus import write_corpus, write_corpus_with_snapshot
+    from spaghettisearch_tpu_torch.index.parallel_build import save_snapshot_uncompressed
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
     from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
     from spaghettisearch_tpu_torch.store.tables import TABLE_SPECS
 
@@ -1456,9 +1489,13 @@ def build_hold_child(seed: int, device: str = "cuda") -> dict:
     dbs = {}
     for what, workers in (("parallel", None), ("one_process", 1)):
         t0 = time.perf_counter()
-        dbs[what] = write_corpus(os.path.join(root, what, "store"), n_pages=HOLD_PAGES,
-                                 seed=seed, device=device, workers=workers,
-                                 log=lambda m, w=what: print(f"# build hold {w}: {m}", flush=True))
+        kw = dict(n_pages=HOLD_PAGES, seed=seed, device=device, workers=workers,
+                  log=lambda m, w=what: print(f"# build hold {w}: {m}", flush=True))
+        if what == "parallel":
+            dbs[what], bucket_snap, _ = write_corpus_with_snapshot(
+                os.path.join(root, what, "store"), **kw)
+        else:
+            dbs[what] = write_corpus(os.path.join(root, what, "store"), **kw)
         out[f"{what}_s"] = round(time.perf_counter() - t0, 1)
     got, want = dbs["parallel"], dbs["one_process"]
     dg, dw = _store_digests(got), _store_digests(want)
@@ -1496,6 +1533,17 @@ def build_hold_child(seed: int, device: str = "cuda") -> dict:
     for f, rtol in (("mag_title", 1e-12), ("mag_body", 1e-12), ("pagerank", 1e-6)):
         if not np.allclose(getattr(sg, f), getattr(sw, f), rtol=rtol, atol=0):
             raise RuntimeError(f"build hold: snapshot {f} off by more than {rtol}")
+    differ = _snapshot_differs(bucket_snap, sg)
+    if differ:
+        raise RuntimeError(f"build hold: the buckets' snapshot differs from build_snapshot in "
+                           f"{differ}")
+    t0 = time.perf_counter()
+    save_snapshot_uncompressed(bucket_snap, os.path.join(root, "snapshot"))
+    out["save_s"] = round(time.perf_counter() - t0, 3)
+    differ = _snapshot_differs(load_snapshot(os.path.join(root, "snapshot")), bucket_snap)
+    if differ:
+        raise RuntimeError(f"build hold: the uncompressed save reads back different {differ}")
+    out.update(bucket_snapshot_equal=True, uncompressed_save_equal=True)
     got.close()
     want.close()
     shutil.rmtree(root, ignore_errors=True)
@@ -1714,7 +1762,10 @@ def bench_phase(smi: str, phase_launches: dict, seed: int, beside) -> dict:
     r = reps["build_hold"]
     say(f"# phase 19, build hold: {HOLD_PAGES} pages, {r['workers']} workers "
         f"{r['parallel_s']} s, one process {r['one_process_s']} s; {r['tables_equal']} tables' "
-        f"digests, the docs pack and the snapshot equal; worst relative {r['worst_rel']} ({smi})")
+        f"digests, the docs pack and the snapshot equal; worst relative {r['worst_rel']}; the "
+        f"buckets' snapshot equal to build_snapshot {r['bucket_snapshot_equal']}, its "
+        f"uncompressed save ({r['save_s']} s) read back equal {r['uncompressed_save_equal']} "
+        f"({smi})")
     r = reps["gates"]
     say(f"# phase 20, past the gates at 100k: {json.dumps(r)} ({smi})")
     r = reps["serve"] = finish(start("serve", "serve", *pages, "--routeMix"))

@@ -11,10 +11,11 @@ tier's modes, each a process of its own, each held to its bar.
     oracle, its queries over the host's cores), serve1m and serve1m
     --routeMix (512 connections); then, while the budget lasts, the nine
     probes that run at 100k in chip_smoke.py (phrase-delta and eight of
-    the corpus probes) at 1M, two at a time. --probes A,B: the build and
-    those probes only.
-2m: the 2,000,000-page corpus; scale2m, parity2m (128 queries), sparse2m
-    (16 queries, its own process).
+    the corpus probes) at 1M, two at a time, the split probe first. --probes
+    A,B: the build and those probes only.
+2m: the 2,000,000-page corpus; parity2m (128 queries), sparse2m (16
+    queries), then scale2m if the budget leaves SCALE2M_S for it; each
+    mode a process of its own.
 
 Holds: parity recall@10 1.0, every top-50 divergence tie-explained,
 score_max_rel_err <= 1e-6, K2 launched; serve every answer 200, no
@@ -23,9 +24,11 @@ fused lane live, int16 planes within POS_T_BUDGET_BYTES, no hot cache, the
 forward arrays on the host; sparse2m no planes, the matcher ran, every
 divergence tie-explained; each probe's own exactness check. Prints the
 card (nvidia-smi name and power limit), the host (MemTotal, cores, free
-disk), each step's seconds, and as its last line one JSON object with
-every result; writes each step's output under --out (default
-chiprun_out/tiers_{tier}). Exits 1 when a hold fails. --device cpu with
+disk), each step's seconds (the build's per step, from its BUILT.json),
+and as its last line one JSON object with every result; writes each
+step's output and results.json under --out (default
+chiprun_out/tiers_{tier}). No mode runs past --budget + GRACE_S seconds
+(3,500 by default, inside a 60-minute call). Exits 1 when a hold fails. --device cpu with
 --pages runs the same steps on a small corpus (the CPU test)."""
 
 from __future__ import annotations
@@ -42,9 +45,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
-PROBES = ("phrase_delta_probe", "probe1m_decomp", "mixed_tbound_probe", "phrase_tmax_probe",
-          "post16_probe", "mixed256_probe", "split_probe", "probe1m", "segregate_probe")
+PROBES = ("split_probe", "phrase_delta_probe", "probe1m_decomp", "mixed_tbound_probe",
+          "phrase_tmax_probe", "post16_probe", "mixed256_probe", "probe1m", "segregate_probe")
 RTOL = 1e-6
+#: seconds a step may run past the budget (the last mode's, results.json's)
+GRACE_S = 200.0
+#: seconds scale2m needs at 2M (its device index build and timed batches),
+#: and a pair of probes at 1M
+SCALE2M_S = 600.0
+PROBE_S = 300.0
 
 
 def _smi() -> str | None:
@@ -79,6 +88,10 @@ class Run:
 
     def left(self) -> float:
         return self.budget_s - (time.monotonic() - self.t0)
+
+    def cap(self, timeout_s: float) -> float:
+        """A step's timeout, cut so that it ends by the budget + GRACE_S."""
+        return min(timeout_s, max(self.left() + GRACE_S, 1.0))
 
     def start(self, name: str, cmd: list[str]):
         log = open(os.path.join(self.out, f"{name}.err"), "wb")
@@ -173,16 +186,17 @@ def _hold_serve(run: Run, name: str, r: dict | None) -> None:
 
 
 def _probes(run: Run, todo: list[str], n_pages: int, device: str, store_bytes: int) -> None:
-    """The probes at n_pages while the budget lasts, two at a time when the
-    host holds two more copies of the store; each held to its own check."""
+    """The probes at n_pages while the budget leaves PROBE_S for them, two
+    at a time when the host holds two more copies of the store; each held
+    to its own check."""
     pair = _mem_available() > 3 * store_bytes
-    while todo and run.left() > 0:
+    while todo and run.left() > PROBE_S:
         jobs = [run.start(p, [sys.executable, os.path.join(HERE, f"torch_{p}.py"),
                               str(n_pages), "--device", device])
                 for p in todo[: 2 if pair else 1]]
         todo = todo[len(jobs):]
         for job in jobs:
-            res = run.finish(job, max(run.left() + 600, 600))
+            res = run.finish(job, run.cap(1800))
             if res is not None:
                 run.hold(job[0], res.get("ok") is True, "its exactness check")
     run.results["probes_not_run"] = todo
@@ -194,7 +208,8 @@ def main(argv=None) -> int:
     ap.add_argument("tier", choices=("1m", "2m"))
     ap.add_argument("--out", help="output directory (default chiprun_out/tiers_{tier})")
     ap.add_argument("--budget", type=float, default=3300.0,
-                    help="seconds after which no probe is started")
+                    help="seconds after which no probe and no scale2m starts; every step ends by "
+                         "--budget + GRACE_S")
     ap.add_argument("--probes", help="1m: run only these probes (comma-separated) after the "
                                      "build, none of the modes")
     ap.add_argument("--device", default="cuda")
@@ -226,14 +241,16 @@ def main(argv=None) -> int:
     shutil.rmtree(root, ignore_errors=True)
     built = run.build([sys.executable, "-m", "spaghettisearch_tpu_torch.bench", "--device",
                        args.device, "--build-corpus", str(n_pages), "30000", root],
-                      os.path.join(root, "BUILT.json"), 3600)
+                      os.path.join(root, "BUILT.json"), run.cap(3600))
     if built is None:
         print(json.dumps({**run.results, "ok": False, "failed": run.failed}))
         return 1
     store_bytes = _dir_bytes(os.path.join(root, "store"))
     run.results["build"]["store_bytes"] = store_bytes
+    run.results["build"]["snapshot_bytes"] = _dir_bytes(os.path.join(root, "snapshot"))
     run.results["build"]["mem_available_after"] = _mem_available()
-    print(f"# build: store {store_bytes} B on disk", flush=True)
+    print(f"# build: store {store_bytes} B on disk; steps {json.dumps(built.get('steps'))}",
+          flush=True)
 
     pages = ["--pages", str(n_pages)]
     queries = ["--queries", str(args.queries)] if args.queries else []
@@ -244,39 +261,47 @@ def main(argv=None) -> int:
             raise SystemExit(f"--probes: {sorted(unknown)} not in {PROBES}")
         _probes(run, todo, n_pages, args.device, store_bytes)
     elif args.tier == "1m":
-        res = run.run("scale_1m", _bench("scale2m", args.device, *pages), 1800)
+        res = run.run("scale_1m", _bench("scale2m", args.device, *pages), run.cap(1800))
         if res is not None and on_card:
             run.hold("scale_1m", res["fused_lane_live"], "fused lane live")
         _hold_parity(run, "parity1m",
-                     run.run("parity1m", _bench("parity1m", args.device, *pages, *queries), 2400),
+                     run.run("parity1m", _bench("parity1m", args.device, *pages, *queries),
+                             run.cap(2400)),
                      on_card)
         for name, flags in (("serve1m", ()), ("serve1m_routes", ("--routeMix",))):
             _hold_serve(run, name, run.run(name, _bench("serve1m", args.device, *pages, *flags),
-                                           1800))
+                                           run.cap(1800)))
         _probes(run, list(PROBES), n_pages, args.device, store_bytes)
     else:
-        res = run.run("scale2m", _bench("scale2m", args.device, *pages), 2400)
-        if res is not None:
-            run.hold("scale2m", res["fused_lane_live"], "fused lane live")
-            run.hold("scale2m", all(d == "torch.int16" for d in res["posT_dtype"].values())
-                     and sum(res["posT_bytes"].values()) <= 2 * res["posT_budget_bytes"]
-                     and max(res["posT_bytes"].values()) <= res["posT_budget_bytes"],
-                     f"int16 planes {res['posT_bytes']} within {res['posT_budget_bytes']} each")
-            if on_card:
-                run.hold("scale2m", not res["hot_cache"] and res["hot_body_w_none"],
-                         "no hot-term cache")
-                run.hold("scale2m", all(res["fwd_on_host"].values()),
-                         f"ft/fw/fj on the host {res['fwd_on_host']}")
         _hold_parity(run, "parity2m",
-                     run.run("parity2m", _bench("parity2m", args.device, *pages, *queries), 3000),
+                     run.run("parity2m", _bench("parity2m", args.device, *pages, *queries),
+                             run.cap(3000)),
                      on_card)
-        res = run.run("sparse2m", _bench("sparse2m", args.device, *pages), 2400)
+        res = run.run("sparse2m", _bench("sparse2m", args.device, *pages), run.cap(2400))
         if res is not None:
             run.hold("sparse2m", not res["pos_dense"], "no position planes")
             run.hold("sparse2m", res["matcher_calls"] > 0, f"matcher calls {res['matcher_calls']}")
             run.hold("sparse2m", res["divergences_tie_explained"] == res["order_divergences_at_50"],
                      f"{res['divergences_tie_explained']} of {res['order_divergences_at_50']} "
                      "divergences tie-explained")
+        if run.left() < SCALE2M_S:
+            run.results["scale2m"] = {"not_run": f"{run.left():.0f}s of the budget left, "
+                                                 f"under SCALE2M_S {SCALE2M_S:.0f}"}
+            print(f"# scale2m: not run ({run.results['scale2m']['not_run']})", flush=True)
+        else:
+            res = run.run("scale2m", _bench("scale2m", args.device, *pages), run.cap(2400))
+            if res is not None:
+                run.hold("scale2m", res["fused_lane_live"], "fused lane live")
+                run.hold("scale2m", all(d == "torch.int16" for d in res["posT_dtype"].values())
+                         and sum(res["posT_bytes"].values()) <= 2 * res["posT_budget_bytes"]
+                         and max(res["posT_bytes"].values()) <= res["posT_budget_bytes"],
+                         f"int16 planes {res['posT_bytes']} within {res['posT_budget_bytes']} "
+                         "each")
+                if on_card:
+                    run.hold("scale2m", not res["hot_cache"] and res["hot_body_w_none"],
+                             "no hot-term cache")
+                    run.hold("scale2m", all(res["fwd_on_host"].values()),
+                             f"ft/fw/fj on the host {res['fwd_on_host']}")
     run.results["seconds"] = round(time.monotonic() - run.t0, 1)
     run.results["failed"] = run.failed
     run.results["ok"] = not run.failed

@@ -153,13 +153,15 @@ def build_bench_corpus(
     <root>/store (the tables and the page cache), <root>/snapshot (the saved
     columnar arrays) and <root>/BUILT.json, written last and atomically.
     PageRank runs on `device`; as many processes as this process may use
-    cores index the pages (corpus.write_corpus). Each step's seconds and
-    the peak RSS are logged. Returns root."""
+    cores index the pages and assemble the snapshot from their key buckets
+    (corpus.write_corpus_with_snapshot; one core: build_snapshot of the
+    store), saved uncompressed (index/parallel_build.py
+    save_snapshot_uncompressed). Each step's seconds and the peak RSS are
+    logged and kept in BUILT.json. Returns root."""
     import resource
 
-    from .corpus import write_corpus
-    from .index.persist import save_snapshot
-    from .index.snapshot import build_snapshot
+    from .corpus import write_corpus_with_snapshot
+    from .index.parallel_build import save_snapshot_uncompressed
 
     marker = os.path.join(root, "BUILT.json")
     params = {"n_pages": n_pages, "n_vocab": n_vocab, "seed": seed, "v": CORPUS_VERSION}
@@ -177,26 +179,27 @@ def build_bench_corpus(
     say(f"host: MemTotal {host['mem_total_bytes']} B, {workers} cores, "
         f"{host['disk_free_bytes']} B free disk")
     t0 = time.perf_counter()
-    db = write_corpus(os.path.join(root, "store"), n_pages=n_pages, n_vocab=n_vocab,
-                      seed=seed, log=say, device=str(device), workers=workers)
+    db, snap, stats = write_corpus_with_snapshot(
+        os.path.join(root, "store"), n_pages=n_pages, n_vocab=n_vocab, seed=seed, log=say,
+        device=str(device), workers=workers)
+    say(f"snapshot: {snap.n_docs} docs, {snap.n_words} words, "
+        f"{snap.body.n_postings + snap.title.n_postings} postings")
     t1 = time.perf_counter()
-    snap = build_snapshot(db)
-    t_snap = time.perf_counter() - t1
-    say(f"snapshot: built in {t_snap:.1f}s ({snap.n_docs} docs, "
-        f"{snap.n_words} words, {snap.body.n_postings + snap.title.n_postings} postings)")
-    t1 = time.perf_counter()
-    save_snapshot(snap, os.path.join(root, "snapshot"))
+    save_snapshot_uncompressed(snap, os.path.join(root, "snapshot"))
     db.close()
     t_save = time.perf_counter() - t1
     kids = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1024
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
-    say(f"save: snapshot saved and store closed in {t_save:.1f}s; peak RSS {rss:.0f} MB "
-        f"(largest child process {kids:.0f} MB)")
+    say(f"save: snapshot saved (uncompressed) and store closed in {t_save:.1f}s; peak RSS "
+        f"{rss:.0f} MB (largest child process {kids:.0f} MB)")
+    steps = {k: round(v, 1) for k, v in stats["seconds"].items()}
+    steps["save"] = round(t_save, 1)
     tmp = marker + ".tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump({**params, "docs": snap.n_docs, "words": snap.n_words,
                    "seconds": round(time.perf_counter() - t0, 1), "workers": workers,
-                   "snapshot_s": round(t_snap, 1), "save_s": round(t_save, 1),
+                   "steps": steps, "magnitude_spans": {k: round(v, 1)
+                                       for k, v in stats.get("magnitude_spans", {}).items()},
                    "peak_rss_mb": round(rss), "host": host}, f)
     os.replace(tmp, marker)
     say(f"total {time.perf_counter() - t0:.1f}s -> {root}")

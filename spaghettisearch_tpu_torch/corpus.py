@@ -16,7 +16,9 @@ JAX package's) inside one bulk session, in page order, with a fixed
 Last-Modified of 2026-01-01; then this package's update_pagerank (the
 reference model, on `device`) and the term weighting pass
 (ops/weighting.py). Into a directory it runs in several processes
-(index/parallel_build.py), which write the same store. So the store holds
+(index/parallel_build.py), which write the same store;
+`write_corpus_with_snapshot` returns the corpus's snapshot beside it (the
+parallel build assembles it from its key buckets). So the store holds
 what bench.py's does, anchor text included: a link's text is a body word
 of the linking page and a title posting of its target at the -100
 sentinel position.
@@ -45,7 +47,7 @@ from datetime import datetime, timezone
 import numpy as np
 
 from .index.indexer import index_page
-from .index.snapshot import IndexSnapshot, SectionCSR, _pad_to
+from .index.snapshot import IndexSnapshot, SectionCSR, _pad_to, build_snapshot
 from .ops.pagerank import update_pagerank
 from .ops.weighting import update_term_weights
 from .store.tables import Database
@@ -119,6 +121,27 @@ def write_corpus(
     store). It defaults to the cores this process may use when `root` is a
     directory; an in-memory store, and workers=1, take the one-process loop
     below. Each step's seconds and the peak RSS go to `log`."""
+    return _write(root, n_pages, n_vocab, seed, log, device, workers, snapshot=False)[0]
+
+
+def write_corpus_with_snapshot(
+    root: str,
+    n_pages: int = 100_000,
+    n_vocab: int = 30_000,
+    seed: int = 0,
+    log=None,
+    device: str = "cuda",
+    workers: int | None = None,
+) -> tuple[Database, IndexSnapshot, dict]:
+    """write_corpus into `root`, and the corpus's snapshot: with several
+    workers the parallel build's (assembled from its key buckets, equal to
+    index/snapshot.py build_snapshot of the store), in one process
+    build_snapshot itself. -> (the open Database, the snapshot, the build's
+    seconds per step under "seconds")."""
+    return _write(root, n_pages, n_vocab, seed, log, device, workers, snapshot=True)
+
+
+def _write(root, n_pages, n_vocab, seed, log, device, workers, snapshot: bool) -> tuple:
     say = log or (lambda msg: None)
     if workers is None:
         workers = len(os.sched_getaffinity(0)) if root is not None else 1
@@ -126,16 +149,18 @@ def write_corpus(
         raise ValueError("write_corpus: a build in several processes needs a root directory")
     t0 = time.perf_counter()
     pages = render_pages(n_pages, n_vocab, seed)
-    say(f"render: {n_pages} pages in {time.perf_counter() - t0:.1f}s")
+    t_render = time.perf_counter() - t0
+    say(f"render: {n_pages} pages in {t_render:.1f}s")
     topics = [("General", {"numPages": float(n_pages), "wordCount": 1.0}),
               ("Science", {"numPages": float(n_pages // 2), "wordCount": 1.0})]
     ts = datetime(2026, 1, 1, tzinfo=timezone.utc)
     if workers > 1:
         from .index.parallel_build import build_store
 
-        db, _ = build_store(root, [(BASE_URL + path, raw) for path, raw in pages.items()], ts,
-                            topics, workers, device=device, log=say)
-        return db
+        db, snap, stats = build_store(root, [(BASE_URL + path, raw) for path, raw in pages.items()],
+                                      ts, topics, workers, device=device, log=say)
+        stats["seconds"] = {"render": t_render, **stats["seconds"]}
+        return db, snap, stats
     db = Database(root)
     for name, row in topics:
         db.topic_meta.set(name, row)
@@ -158,7 +183,13 @@ def write_corpus(
     db.flush()
     say(f"term weighting in {time.perf_counter() - t1:.1f}s; peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f} MB")
-    return db
+    if not snapshot:
+        return db, None, None
+    t1 = time.perf_counter()
+    snap = build_snapshot(db)
+    t_snap = time.perf_counter() - t1
+    say(f"snapshot: build_snapshot of the store in {t_snap:.1f}s")
+    return db, snap, {"workers": 1, "seconds": {"render": t_render, "snapshot": t_snap}}
 
 
 def bench_queries(snap, n_queries: int, seed: int = 1, phrase_every: int = 4,

@@ -29,13 +29,21 @@ and gives each range the state that matters to it instead:
    it, and those that later chunks add after it. The rows go into a store
    of the bucket's own, where `ops/weighting.py update_term_weights`
    weights them (idf over the PageRank node census; the bucket holds
-   every posting of its words); each doc's sum of squared weights over the
-   bucket's words goes back to the parent.
+   every posting of its words). The bucket then writes its part of the
+   snapshot: its words' weighted postings as `SectionCSR.from_flat`
+   orders them (by word, then doc id in the sorted census), and each
+   doc's sum of squared weights over its words, by census id.
 4. The parent joins the buckets' table logs into one store (disjoint keys,
    so the logs concatenate), appends the pages to the docs pack in page
    order, writes the topic rows, runs PageRank on `device`, and writes
    each doc's magnitude: the root of its buckets' sums (the same squared
    weights, summed in another order).
+5. The snapshot (`build_snapshot` of the joined store, array for array):
+   the buckets are ranges of the keys' 32-bit prefix, so their sorted
+   words are contiguous runs of the global sorted word list and their
+   parts concatenate in bucket order, with the offsets shifted and the
+   pads added once; the magnitudes and ranks are the float32 of the
+   numbers the parent writes to the store.
 
 Workers are forked (they share the rendered pages) and never touch CUDA;
 PageRank runs in the parent after the merge. A worker that raises or dies
@@ -45,6 +53,7 @@ fails the build: nothing is redone in one process.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import json
 import math
 import multiprocessing
 import os
@@ -63,7 +72,8 @@ from ..store.tables import _DELETED, TABLE_SPECS, Database
 from ..text.htmlparse import tokenize_page
 from ..utils.hashing import md5_hex, md5_str
 from .indexer import index_page
-from .snapshot import export_postings
+from .persist import _SECTION_FIELDS
+from .snapshot import IndexSnapshot, SectionCSR, _pad_to, export_postings
 
 #: tables the parent writes itself, after the merge (the indexer leaves them alone)
 PARENT_TABLES = ("inv_topic", "doc_rank", "doc_magnitude", "topic_meta")
@@ -74,6 +84,7 @@ _ROW_TABLES = ("inv_title", "inv_title_raw")
 #: posting rows keyed by the page that writes them (body postings): a chunk's
 #: part of a row is its stored text, and a row is its parts joined in page order
 _TEXT_ROWS = ("inv_body", "inv_body_raw")
+SECTIONS = ("title", "body")
 
 # the read-only state forked workers inherit: set by build_store before each pool starts
 _S: dict = {}
@@ -92,7 +103,44 @@ def default_buckets(n_pages: int, workers: int) -> int:
 
 
 def _bucket(key: str, n_buckets: int) -> int:
-    return int(key[:8], 16) % n_buckets
+    """A range of the key's 32-bit prefix: bucket b holds the keys that sort
+    between bucket b-1's and bucket b+1's."""
+    return int(key[:8], 16) * n_buckets >> 32
+
+
+#: hex digit -> its value (255 for any other byte)
+_NIBBLE = np.full(256, 255, np.uint8)
+_NIBBLE[np.frombuffer(b"0123456789", np.uint8)] = np.arange(10)
+_NIBBLE[np.frombuffer(b"abcdef", np.uint8)] = np.arange(10, 16)
+
+
+def _prefix64(hashes: np.ndarray) -> np.ndarray:
+    """uint64 of each S32 hex hash's first 16 digits: for lowercase hex, the
+    order of the hashes themselves."""
+    nib = _NIBBLE[np.frombuffer(hashes.tobytes(), np.uint8).reshape(-1, hashes.itemsize)[:, :16]]
+    packed = np.ascontiguousarray((nib[:, 0::2] << 4) | nib[:, 1::2])
+    return packed.view(">u8").ravel().astype(np.uint64)
+
+
+def _census_ids(hashes: np.ndarray) -> np.ndarray:
+    """Each doc hash's index in the sorted census (_S["census"]), as
+    SectionCSR.from_flat's searchsorted finds it: a search on the 64-bit
+    prefixes, each hit checked against the whole hash, and the misses (a
+    prefix two census docs share) searched again on the whole hash. A hash
+    outside the census raises KeyError. -> int32 [len(hashes)]."""
+    census, keys = _S["census"], _S["census_keys"]
+    if not len(hashes):
+        return np.zeros(0, np.int32)
+    if not len(census):
+        raise KeyError(hashes[0].decode())
+    idx = np.minimum(np.searchsorted(keys, _prefix64(hashes)), len(census) - 1)
+    miss = np.flatnonzero(census[idx] != hashes)
+    if len(miss):
+        idx[miss] = np.minimum(np.searchsorted(census, hashes[miss]), len(census) - 1)
+        bad = census[idx[miss]] != hashes[miss]
+        if bad.any():
+            raise KeyError(hashes[miss][bad][0].decode())
+    return idx.astype(np.int32)
 
 
 def _rss_mb() -> float:
@@ -206,9 +254,10 @@ def _index_chunk(c: int, s: int, e: int) -> tuple[int, float, float, float]:
 
 def _merge_bucket(b: int) -> tuple:
     """Every chunk's rows of key bucket b, merged in page order, written
-    into the bucket's own store and weighted there. -> (b, per section the
-    doc hashes and their sums of squared weights over the bucket's words,
-    seconds merging, writing and weighting, rss MB)."""
+    into the bucket's own store and weighted there; the bucket's part of
+    the snapshot written beside it (_snapshot_part). -> (b, the part's
+    path and sizes, seconds merging, writing, weighting and writing the
+    part, rss MB)."""
     t0 = time.perf_counter()
     spill, n_chunks, n = _S["spill"], _S["n_chunks"], _S["n_nodes"]
     rows = {name: {} for name in _ROW_TABLES}
@@ -278,9 +327,61 @@ def _merge_bucket(b: int) -> tuple:
         compact = getattr(db.tables[name]._kv, "compact", None)
         if compact is not None and compact() is False:
             raise RuntimeError(f"could not compact the bucket's {name}")
-    db.close()
     t_weigh = time.perf_counter() - t0 - t_merge - t_write
-    return (b, sums, t_merge, t_write, t_weigh, _rss_mb())
+    part = _snapshot_part(db, b, sums)
+    db.close()
+    t_part = time.perf_counter() - t0 - t_merge - t_write - t_weigh
+    return (b, part, t_merge, t_write, t_weigh, t_part, _rss_mb())
+
+
+def _section_part(flat: tuple, words: np.ndarray) -> dict[str, np.ndarray]:
+    """SectionCSR.from_flat's arithmetic on one bucket's export, without the
+    pads: per word of `words` (the bucket's sorted words) its posting
+    count, and the postings ordered by (word, census id) with their
+    positions sorted ascending within each posting."""
+    row_keys, row_offsets, doc_hashes, weights, pos_offsets, positions = flat
+    n_post = len(weights)
+    word_of_post = np.repeat(np.searchsorted(words, row_keys),
+                             np.diff(row_offsets.astype(np.int64)))
+    doc_of_post = _census_ids(doc_hashes)
+    order = np.lexsort((doc_of_post, word_of_post))
+    pos_offsets64 = pos_offsets.astype(np.int64)
+    pos_len_o = np.diff(pos_offsets64)[order]
+    total = int(pos_len_o.sum())
+    pos = np.zeros(0, np.float64)
+    if total:
+        shift = np.repeat(np.cumsum(pos_len_o) - pos_len_o, pos_len_o)
+        src = np.arange(total, dtype=np.int64) - shift + np.repeat(pos_offsets64[:-1][order],
+                                                                    pos_len_o)
+        pos = positions[src]
+        seg = np.repeat(np.arange(n_post, dtype=np.int64), pos_len_o)
+        pos = pos[np.lexsort((pos, seg))]
+    return {"counts": np.bincount(word_of_post, minlength=len(words)).astype(np.int64),
+            "doc_ids": doc_of_post[order], "weights": weights[order].astype(np.float32),
+            "pos_counts": pos_len_o, "positions": pos.astype(np.float32)}
+
+
+def _snapshot_part(db: Database, b: int, sums: dict) -> dict:
+    """Bucket b's part of the snapshot, from its weighted store: its sorted
+    words, each section's postings (_section_part) and each doc's sum of
+    squared weights over the bucket's words by census id, in one
+    uncompressed .npz under the build's work directory. -> {"path",
+    "words", and per section "post" and "pos", the part's sizes}."""
+    flats = {s: export_postings(db.inverted(s)) for s in ("title", "body")}
+    words = np.union1d(flats["title"][0], flats["body"][0])
+    arrays: dict[str, np.ndarray] = {"words": words}
+    out: dict = {"words": len(words)}
+    for section, flat in flats.items():
+        for k, v in _section_part(flat, words).items():
+            arrays[f"{section}.{k}"] = v
+        out[section] = {"post": len(arrays[f"{section}.doc_ids"]),
+                        "pos": len(arrays[f"{section}.positions"])}
+        dh, sq = sums[section]
+        arrays[f"{section}.mag_ids"] = _census_ids(dh)
+        arrays[f"{section}.mag_sq"] = np.asarray(sq, np.float64)
+    out["path"] = os.path.join(_S["parts"], f"b{b:04d}.npz")
+    np.savez(out["path"], **arrays)
+    return out
 
 
 def _weigh(db: Database, section: str, n: float) -> tuple[np.ndarray, np.ndarray]:
@@ -344,6 +445,100 @@ def _run_pool(workers: int, fn, tasks: list[tuple]) -> list:
     return out
 
 
+def _join_parts(parts: list[dict], census: np.ndarray) -> tuple:
+    """The buckets' snapshot parts, in bucket order, joined: the sorted
+    words, each section's SectionCSR padded as from_flat pads it, and per
+    section each doc's sum of squared weights over every bucket and
+    whether a bucket saw it. -> (words S32, {section: SectionCSR},
+    {section: f64 [D]}, {section: bool [D]}, seconds adding the sums)."""
+    n_docs, n_words = len(census), sum(p["words"] for p in parts)
+    words = np.empty(n_words, "S32")
+    out: dict = {}
+    for section in SECTIONS:
+        n_post = sum(p[section]["post"] for p in parts)
+        n_pos = sum(p[section]["pos"] for p in parts)
+        if max(n_post, n_pos) >= 2**31:
+            raise OverflowError(f"{section}: {n_post} postings, {n_pos} positions overflow "
+                                "the snapshot's int32 offsets")
+        p_pad = _pad_to(n_post)
+        # counts and pos_counts one slot right, zero past the last posting:
+        # their running sums are the offsets, pads included
+        out[section] = {"counts": np.zeros(n_words + 1, np.int64),
+                        "doc_ids": np.full(p_pad, n_docs, np.int32),
+                        "weights": np.zeros(p_pad, np.float32),
+                        "pos_counts": np.zeros(p_pad + 1, np.int64),
+                        "positions": np.full(_pad_to(n_pos), np.inf, np.float32)}
+    sq = {s: np.zeros(n_docs, np.float64) for s in SECTIONS}
+    seen = {s: np.zeros(n_docs, bool) for s in SECTIONS}
+    t_add = 0.0
+    w0, p0, l0 = 0, dict.fromkeys(SECTIONS, 0), dict.fromkeys(SECTIONS, 0)
+    for part in parts:
+        nw = part["words"]
+        with np.load(part["path"]) as z:
+            words[w0 : w0 + nw] = z["words"]
+            for section in SECTIONS:
+                a, np_, nl = out[section], part[section]["post"], part[section]["pos"]
+                a["counts"][1 + w0 : 1 + w0 + nw] = z[f"{section}.counts"]
+                a["doc_ids"][p0[section] : p0[section] + np_] = z[f"{section}.doc_ids"]
+                a["weights"][p0[section] : p0[section] + np_] = z[f"{section}.weights"]
+                a["pos_counts"][1 + p0[section] : 1 + p0[section] + np_] = \
+                    z[f"{section}.pos_counts"]
+                a["positions"][l0[section] : l0[section] + nl] = z[f"{section}.positions"]
+                p0[section] += np_
+                l0[section] += nl
+                t = time.perf_counter()
+                ids = z[f"{section}.mag_ids"]
+                sq[section][ids] += z[f"{section}.mag_sq"]
+                seen[section][ids] = True
+                t_add += time.perf_counter() - t
+        w0 += nw
+    if n_words > 1 and not (words[1:] > words[:-1]).all():
+        raise RuntimeError("the buckets' words are not contiguous runs of the sorted word list")
+    csr = {}
+    for section, a in out.items():
+        csr[section] = SectionCSR(
+            post_offsets=np.cumsum(a["counts"]).astype(np.int32),
+            doc_ids=a["doc_ids"],
+            weights=a["weights"],
+            pos_offsets=np.cumsum(a["pos_counts"]).astype(np.int32),
+            positions=a["positions"],
+            n_postings=p0[section],
+            max_df=int(a["counts"].max(initial=0)),
+            max_positions=int(a["pos_counts"].max(initial=0)),
+        )
+    return words, csr, sq, seen, t_add
+
+
+def save_snapshot_uncompressed(snap: IndexSnapshot, path: str) -> None:
+    """index/persist.py save_snapshot's layout (`arrays.npz` with the same
+    keys, `meta.json`), written by np.savez, not np.savez_compressed: the
+    same atomic write (a temporary sibling directory renamed into place),
+    and persist.load_snapshot reads it unchanged."""
+    final = os.path.abspath(path)
+    tmp = f"{final}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    arrays = {f"{name}.{f}": getattr(snap.section(name), f)
+              for name in SECTIONS for f in _SECTION_FIELDS}
+    arrays.update(mag_title=snap.mag_title, mag_body=snap.mag_body)
+    if snap.pagerank is not None:
+        arrays["pagerank"] = snap.pagerank
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    meta = {"doc_hashes": snap.doc_hashes, "word_hashes": snap.word_hashes,
+            "categories": snap.categories}
+    for name in SECTIONS:
+        csr = snap.section(name)
+        meta[name] = {"n_postings": csr.n_postings, "max_df": csr.max_df,
+                      "max_positions": csr.max_positions}
+    with open(os.path.join(tmp, "meta.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f)
+    old = f"{final}.old-{os.getpid()}"
+    if os.path.exists(final):
+        os.rename(final, old)
+    os.rename(tmp, final)
+    shutil.rmtree(old, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------- #
 # the build
 # ---------------------------------------------------------------------- #
@@ -357,13 +552,14 @@ def build_store(
     workers: int,
     device: str = "cuda",
     log=None,
-) -> tuple[Database, dict]:
+) -> tuple[Database, IndexSnapshot, dict]:
     """Index `pages` ((url, raw HTML) in crawl order, each url once) into a
     fresh store at `root` with `workers` processes, run PageRank on
     `device` and weight the terms: the store one process writes with
     index_page over the same pages in one bulk session, then
-    update_pagerank and update_term_weights. -> (the open Database, the
-    build's seconds per step and memory)."""
+    update_pagerank and update_term_weights. -> (the open Database, its
+    snapshot, equal to index/snapshot.py build_snapshot of it, the build's
+    seconds per step and memory)."""
     from ..ops.pagerank import update_pagerank
 
     say = log or (lambda msg: None)
@@ -373,20 +569,21 @@ def build_store(
     chunk_pages = default_chunk_pages(n, workers)
     n_buckets = default_buckets(n, workers)
     stats: dict = {"workers": workers, "pages": n, "chunk_pages": chunk_pages,
-                   "buckets": n_buckets, "seconds": {}, "worker_rss_mb": 0.0}
-    sec = stats["seconds"]
+                   "buckets": n_buckets, "seconds": {}, "magnitude_spans": {},
+                   "worker_rss_mb": 0.0}
+    sec, spans = stats["seconds"], stats["magnitude_spans"]
     work = root.rstrip("/") + ".parts"
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(root, ignore_errors=True)
-    spill, shards = os.path.join(work, "spill"), os.path.join(work, "shards")
-    os.makedirs(spill)
-    os.makedirs(shards)
+    spill, shards, parts = (os.path.join(work, d) for d in ("spill", "shards", "parts"))
+    for d in (spill, shards, parts):
+        os.makedirs(d)
     watch = _MemWatch()
     chunks = [(c, s, min(n, s + chunk_pages)) for c, s in enumerate(range(0, n, chunk_pages))]
     urls = [u for u, _ in pages]
     _S.clear()
     _S.update(urls=urls, raws=[r for _, r in pages], ts=last_modified, n_buckets=n_buckets,
-              spill=spill, shards=shards, n_chunks=len(chunks))
+              spill=spill, shards=shards, parts=parts, n_chunks=len(chunks))
 
     def note_rss(rss) -> None:
         stats["worker_rss_mb"] = max(stats["worker_rss_mb"], *rss)
@@ -417,6 +614,10 @@ def build_store(
             f"({len(chunks)} chunks of {chunk_pages})")
 
         t = time.perf_counter()
+        census = np.asarray(sorted(nodes), dtype="S32")
+        spans["census_sort"] = time.perf_counter() - t
+
+        t = time.perf_counter()
         _S.update(hashes=hashes, page_of=page_of, titles=titles, kids=kids,
                   first_linker=first_linker.tolist(), n_nodes=float(len(nodes)))
         res = _run_pool(workers, _index_chunk, chunks)
@@ -429,19 +630,33 @@ def build_store(
             f"{stats['worker_index_s']:.1f}, spill {stats['worker_spill_s']:.1f})")
 
         t = time.perf_counter()
+        _S.update(census=census, census_keys=_prefix64(census))
         res = sorted(_run_pool(workers, _merge_bucket, [(b,) for b in range(n_buckets)]))
-        note_rss([r[5] for r in res])
+        note_rss([r[6] for r in res])
         sec["merge"] = time.perf_counter() - t
-        for i, step in ((2, "merge"), (3, "write"), (4, "weighting")):
+        for i, step in ((2, "merge"), (3, "write"), (4, "weighting"), (5, "snapshot_part")):
             stats[f"worker_{step}_s"] = sum(r[i] for r in res)
         say(f"merge: {n_buckets} buckets in {sec['merge']:.1f}s (worker seconds: merge "
             f"{stats['worker_merge_s']:.1f}, write {stats['worker_write_s']:.1f}, "
-            f"weighting {stats['worker_weighting_s']:.1f})")
+            f"weighting {stats['worker_weighting_s']:.1f}, snapshot parts "
+            f"{stats['worker_snapshot_part_s']:.1f})")
+
+        t = time.perf_counter()
+        words, csr, sq, seen, spans["accumulate"] = _join_parts([r[1] for r in res], census)
+        del res
+        sec["snapshot"] = time.perf_counter() - t
+        say(f"snapshot: {n_buckets} buckets' parts joined in {sec['snapshot']:.1f}s "
+            f"({len(words)} words, {csr['title'].n_postings} title + "
+            f"{csr['body'].n_postings} body postings; the magnitudes' sums added in "
+            f"{spans['accumulate']:.1f}s)")
 
         t = time.perf_counter()
         _concat_tables([os.path.join(shards, f"b{b:04d}") for b in range(n_buckets)], root)
         shutil.rmtree(work, ignore_errors=True)
         db = Database(root)
+        if len(db.doc_info) != len(census):
+            raise RuntimeError(f"the store holds {len(db.doc_info)} docs, the census "
+                               f"{len(census)}")
         for name, row in topic_meta:
             db.topic_meta.set(name, row)
         for h, (_, raw) in zip(hashes, pages):
@@ -451,9 +666,11 @@ def build_store(
             f"{sec['join']:.1f}s")
 
         t = time.perf_counter()
-        pr = update_pagerank(db, device=device)
-        if pr["nodes"] != len(nodes):
-            raise RuntimeError(f"PageRank counted {pr['nodes']} nodes, the scan {len(nodes)}")
+        pr = update_pagerank(db, device=device, keep_ranks=True)
+        node_list, ranks = pr.pop("node_list"), pr.pop("ranks")
+        if not np.array_equal(np.asarray(node_list, dtype="S32"), census):
+            raise RuntimeError(f"PageRank's {pr['nodes']} nodes are not the scan's "
+                               f"{len(census)}")
         sec["pagerank"] = time.perf_counter() - t
         stats["pagerank"] = pr
         say(f"pagerank ({pr['nodes']} nodes, {pr['edges']} edges, {pr['iterations']} "
@@ -461,30 +678,47 @@ def build_store(
 
         t = time.perf_counter()
         # a doc's squared magnitude is its squared weights summed over every
-        # word; each bucket's store holds the root of its words' share
-        census = np.asarray(sorted(nodes), dtype="S32")
-        sq = {s: np.zeros(len(census), np.float64) for s in ("title", "body")}
-        seen = {s: np.zeros(len(census), bool) for s in ("title", "body")}
-        for r in res:
-            for section, (dh, sums) in r[1].items():
-                idx = np.minimum(np.searchsorted(census, dh), max(len(census) - 1, 0))
-                if len(dh) and (census[idx] != dh).any():
-                    raise RuntimeError(f"a {section} posting names a doc outside the census")
-                sq[section][idx] += sums
-                seen[section][idx] = True
-        cols = [(section, seen[section].tolist(), np.sqrt(sq[section]).tolist())
-                for section in ("title", "body")]
+        # word; each bucket's part holds its words' share
+        roots = {s: np.sqrt(sq[s]) for s in SECTIONS}
+        cols = [(s, seen[s].tolist(), roots[s].tolist()) for s in SECTIONS]
+        any_seen = seen["title"] | seen["body"]
         with db.doc_magnitude.batch() as bw:
-            for i in np.flatnonzero(seen["title"] | seen["body"]).tolist():
+            for i in np.flatnonzero(any_seen).tolist():
                 bw.set(census[i].decode(), {s: root[i] for s, has, root in cols if has[i]})
+        del cols
+        spans["rows"] = time.perf_counter() - t
+        t1 = time.perf_counter()
         # Database.flush() without its compaction pass: these logs hold each
         # row once, and rewriting the largest tables would only cost time
         db._docs_pack.flush()
         for table in db.tables.values():
             table._kv.flush()
+        spans["flush"] = time.perf_counter() - t1
         sec["weighting"] = time.perf_counter() - t
-        say(f"term weighting: magnitudes of {int((seen['title'] | seen['body']).sum())} docs "
-            f"joined and written in {sec['weighting']:.1f}s (the rows were weighted per bucket)")
+        say(f"term weighting: magnitudes of {int(any_seen.sum())} docs written in "
+            f"{sec['weighting']:.1f}s (the rows were weighted per bucket; census sort "
+            f"{spans['census_sort']:.1f}s, sums added {spans['accumulate']:.1f}s, rows "
+            f"{spans['rows']:.1f}s, the tables' flush {spans['flush']:.1f}s)")
+
+        t = time.perf_counter()
+        # the numbers the store now holds, as float32: the rows' JSON floats
+        # read back to the same doubles
+        categories = sorted(db.topic_meta.keys())
+        doc_hashes = [h.decode() for h in census.tolist()]
+        word_hashes = [w.decode() for w in words.tolist()]
+        snap = IndexSnapshot(
+            doc_hashes=doc_hashes,
+            word_hashes=word_hashes,
+            doc_id={h: i for i, h in enumerate(doc_hashes)},
+            word_id={h: i for i, h in enumerate(word_hashes)},
+            title=csr["title"],
+            body=csr["body"],
+            mag_title=roots["title"].astype(np.float32),
+            mag_body=roots["body"].astype(np.float32),
+            categories=categories,
+            pagerank=np.ascontiguousarray(ranks.T, dtype=np.float32) if categories else None,
+        )
+        sec["snapshot"] += time.perf_counter() - t
     except BaseException:
         watch.stop()
         _S.clear()
@@ -496,4 +730,4 @@ def build_store(
     say(f"peak RSS: parent {stats['parent_rss_mb']:.0f} MB, workers up to "
         f"{stats['worker_rss_mb']:.0f} MB; "
         f"host memory in use rose by up to {stats['host_used_mb']:.0f} MB")
-    return db, stats
+    return db, snap, stats

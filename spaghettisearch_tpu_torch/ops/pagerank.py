@@ -215,13 +215,16 @@ def update_pagerank(
     personalized: bool = False,
     device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
+    keep_ranks: bool = False,
 ) -> dict:
     """Recompute per-category PageRank on `device` in `dtype` and store
     doc_rank rows (reference: ranking/pagerank.go:14-83). personalized=True
     runs the repaired topic-sensitive model (per-category ODP teleport
     vectors) instead of the reference's decorative category loop.
     -> {"nodes", "edges", "categories", "iterations", "ms"}: ms is the
-    iteration's time (CUDA events on the card, the host clock otherwise)."""
+    iteration's time (CUDA events on the card, the host clock otherwise);
+    with keep_ranks also "node_list" (the sorted node hashes) and "ranks"
+    (numpy [categories, nodes], the numbers the rows hold)."""
     device = _device(device)
     node_list, edge_src, edge_dst, outdeg = _load_graph(db)
     n_nodes = len(node_list)
@@ -269,4 +272,6 @@ def update_pagerank(
     with db.doc_rank.batch() as bw:
         for i, node in enumerate(node_list):
             bw.set(node, {c: float(ranks[j, i]) for j, c in enumerate(categories)})
+    if keep_ranks:
+        run.update(node_list=node_list, ranks=ranks)
     return run

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from spaghettisearch_tpu_torch.corpus import BASE_URL, write_corpus
+from spaghettisearch_tpu_torch import corpus
+from spaghettisearch_tpu_torch.corpus import BASE_URL, write_corpus, write_corpus_with_snapshot
 from spaghettisearch_tpu_torch.index import parallel_build
 from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
 from spaghettisearch_tpu_torch.store.tables import TABLE_SPECS
@@ -144,26 +145,42 @@ def test_parallel_build_equals_bench_corpus(tmp_path):
         jdb.close()
 
 
-@pytest.mark.parametrize("fault", ["raises", "dies"])
+@pytest.mark.parametrize("fault", ["raises", "dies", "snapshot_raises", "snapshot_dies"])
 def test_a_failed_worker_fails_the_build(tmp_path, monkeypatch, fault):
-    """A worker that raises, or one that dies, fails the whole build (the
-    forked workers see the patched indexer); nothing finishes it in one
-    process, and the work directory is removed."""
+    """A worker that raises, or one that dies, while indexing a page or
+    while writing its key bucket's part of the snapshot fails the whole
+    build (the forked workers see the patched function); nothing finishes
+    it in one process or falls back to build_snapshot, and the work
+    directory is removed."""
     index_page = parallel_build.index_page
+    snapshot_part = parallel_build._snapshot_part
     bad = f"{BASE_URL}/p150"
+
+    def fail():
+        if fault.endswith("dies"):
+            os._exit(3)
+        raise ValueError("injected fault")
 
     def faulty(db, raw, url, **kw):
         if url == bad:
-            if fault == "dies":
-                os._exit(3)
-            raise ValueError("injected fault")
+            fail()
         return index_page(db, raw, url, **kw)
 
-    monkeypatch.setattr(parallel_build, "index_page", faulty)
-    want = ValueError if fault == "raises" else parallel_build.cf.process.BrokenProcessPool
+    def faulty_part(db, b, sums):
+        if b == 1:
+            fail()
+        return snapshot_part(db, b, sums)
+
+    if fault.startswith("snapshot"):
+        monkeypatch.setattr(parallel_build, "_snapshot_part", faulty_part)
+        monkeypatch.setattr(corpus, "build_snapshot",
+                            lambda db: pytest.fail("the build fell back to build_snapshot"))
+    else:
+        monkeypatch.setattr(parallel_build, "index_page", faulty)
+    want = ValueError if fault.endswith("raises") else parallel_build.cf.process.BrokenProcessPool
     with pytest.raises(want):
-        write_corpus(str(tmp_path / "store"), n_pages=300, n_vocab=VOCAB, seed=SEED,
-                     device="cpu", workers=2)
+        write_corpus_with_snapshot(str(tmp_path / "store"), n_pages=300, n_vocab=VOCAB,
+                                   seed=SEED, device="cpu", workers=2)
     assert not os.path.exists(str(tmp_path / "store") + ".parts")
 
 
