@@ -5,7 +5,7 @@ and check what the store and the server recover.
 
     python3 experiments/torch_crash_recovery.py [--phase a|b|all] [--pages 1000000]
         [--seed 0] [--device cuda] [--work DIR] [--skip-copy] [--killAfterS 20]
-        [--holdFile PATH]
+        [--checkQueries N]
 
 The corpus is the port's benchmark corpus of --pages pages
 (bench.ensure_bench_corpus: reused when built, else built); the phases run
@@ -35,9 +35,17 @@ on a copy of its store/ (and snapshot/ for phase B) under --work
            that took a temporary file would serve the marks. The server is
            restarted and queried (every answer 200 JSON, some results, no
            mark); its sidecar must then carry the recovered store's
-           fingerprint (sidecar_rebuilt). With --holdFile the restarted
-           server stays up until that file exists (chip_smoke.py phase 18
-           queries it meanwhile).
+           fingerprint (sidecar_rebuilt). With --checkQueries N the
+           restarted server also answers the first N queries of
+           chip_smoke.py's serving mix from CHECK_CLIENTS threads, and
+           after phase B a QueryEngine on --device over the recovered store
+           and snapshot ranks them through the kernels (K1 and K2 must
+           launch on a card) and through their plain versions: every answer
+           must be well-formed and equal both (restart_check).
+
+holds() turns main()'s phases into the soak's pass/fail list (phase A's
+committed pages and append, phase B's kill, stale and rebuilt sidecar, and
+the restart check): chip_smoke.py phase 18 and torch_tiers.py 1m hold it.
 
 Differences from the original: the pages' link targets are drawn from
 100,000 page ids, not 10,000,000 (make_page lists every candidate id, which
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import signal
@@ -66,8 +75,12 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch_probe_util as util  # noqa: E402
 
 PAGES_PER_FLUSH = 50
+CHECK_CLIENTS = 8  # concurrent clients of --checkQueries, as chip_smoke.py's serving phases
 LINK_PAGES = 100_000  # the population make_page draws link targets from
 BASE = "http://crash.local"
 FIRST_PAGE_A = 5_000_000  # the original's first page id
@@ -396,17 +409,105 @@ def phase_b(work: str, card: dict, device: str, kill_after_s: float, n_pages: in
     return res
 
 
-def hold_until(path: str, timeout_s: float = 1800.0):
-    """An on_restart that prints the restarted server's address and waits
-    for `path` to exist."""
-    def wait(base: str) -> None:
-        print(f"restarted server holding at {base} until {path} exists", flush=True)
-        deadline = time.monotonic() + timeout_s
-        while not os.path.exists(path):
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"{path} never appeared")
-            time.sleep(0.5)
-    return wait
+def check_queries(work: str, n: int, seed: int) -> list[str]:
+    """The first n distinct queries of chip_smoke.py's serving mix
+    (bench_queries(snap, 320, seed=seed + 1, phrase_every=4)) on the
+    copy's snapshot and store."""
+    from spaghettisearch_tpu_torch.corpus import bench_queries
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    db = Database(os.path.join(work, "store"))
+    try:
+        qs = bench_queries(load_snapshot(os.path.join(work, "snapshot")), 320, seed=seed + 1,
+                           phrase_every=4, db=db)
+    finally:
+        db.close()
+    return list(dict.fromkeys(qs[:n]))
+
+
+def ask(queries: list[str], answers: dict, then=None):
+    """An on_restart that POSTs the queries to the restarted server from
+    CHECK_CLIENTS threads and keeps each answer in `answers`, then calls
+    `then` (or nothing)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def on_restart(base: str) -> None:
+        with ThreadPoolExecutor(CHECK_CLIENTS) as pool:
+            bodies = list(pool.map(
+                lambda q: json.loads(post(base, "/query", {"query": q}, timeout=600)), queries))
+        answers.update(zip(queries, bodies))
+        if then is not None:
+            then(base)
+    return on_restart
+
+
+def restart_check(work: str, device: str, answers: dict) -> dict:
+    """The restarted server's answers against a QueryEngine on the same
+    recovered store and snapshot, ranked through the kernels (K1 and K2
+    must launch on a card) and through their plain versions on the same
+    device: every answer's FinalRanks finite and descending, and equal to
+    both (FinalRank within 1e-6 relative, Urls equal except at tied
+    scores). Raises on a difference."""
+    from spaghettisearch_tpu_torch.index.persist import load_snapshot
+    from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine
+    from spaghettisearch_tpu_torch.store.tables import Database
+
+    qs = list(answers)
+    kw = [q for q in qs if '"' not in q]
+    ph = [q for q in qs if '"' in q]
+    db = Database(os.path.join(work, "store"))
+    try:
+        eng = QueryEngine(db, snapshot=load_snapshot(os.path.join(work, "snapshot")),
+                          device=device)
+        util.reset_launches()
+        got = dict(zip(kw + ph, eng.query_batch(kw) + eng.query_batch(ph)))
+        util.sync(device)
+        launched = util.launches()
+        with util.plain_kernels():
+            ref = dict(zip(kw + ph, eng.query_batch(kw) + eng.query_batch(ph)))
+    finally:
+        db.close()
+    if device.startswith("cuda") and min(launched["K1"], launched["K2"]) == 0:
+        raise RuntimeError(f"restart check: K1 or K2 never launched: {launched}")
+    for q in qs:
+        ranks = [r["FinalRank"] for r in answers[q]]
+        if ranks != sorted(ranks, reverse=True) or not all(
+                isinstance(x, float) and math.isfinite(x) for x in ranks):
+            raise RuntimeError(f"the restarted server's answer to {q!r}: bad FinalRank "
+                               "order or values")
+    for what, want in (("the kernel path", got), ("the plain path", ref)):
+        bad = [q for q in qs if not util.same_results(answers[q], want[q])]
+        if bad:
+            raise RuntimeError(f"the restarted server's answer to {bad[0]!r} differs from "
+                               f"{what} on the recovered store")
+    res = {"queries": len(qs), "keyword": len(kw), "phrase": len(ph),
+           "results": sum(len(a) for a in answers.values()), "launches": launched,
+           "equal_kernel_path": True, "equal_plain_path": True}
+    print(f"the restarted server's {len(qs)} answers equal the kernel and the plain path on "
+          f"the recovered store: {json.dumps(res)}", flush=True)
+    return res
+
+
+def holds(results: list[dict]) -> list[tuple[bool, str]]:
+    """main()'s phases ["crash_recovery"], A then B -> [(held, what)]: the
+    soak's pass/fail list, which its callers hold."""
+    a, b = results
+    c = b.get("restart_check") or {}
+    committed = a["committed_pages_ok"]
+    return [
+        (a["phase"] == "a" and a["post_recovery_append"]
+         and committed == PAGES_PER_FLUSH * a["flushes_before_kill"] >= 2 * PAGES_PER_FLUSH
+         and a["docs"] >= a["docs_before"] + committed,
+         f"phase A: {committed} pages of {a['flushes_before_kill']} committed flushes intact, "
+         "the append after the recovery read back"),
+        (b["phase"] == "b" and b["killed_mid_refresh"], "phase B: killed mid-/refresh"),
+        (b["sidecar_stale_detected"] and b["sidecar_rebuilt"] and not b["tmp_sidecar_loaded"],
+         "phase B: the stale sidecar detected and rebuilt, the temporary one not loaded"),
+        (c.get("equal_kernel_path") is True and c.get("equal_plain_path") is True,
+         f"phase B: the restarted server's {c.get('queries')} answers equal the kernel and "
+         "plain paths"),
+    ]
 
 
 def main(argv: list[str] | None = None, on_restart=None) -> dict:
@@ -422,8 +523,9 @@ def main(argv: list[str] | None = None, on_restart=None) -> dict:
     ap.add_argument("--skip-copy", action="store_true", help="reuse the copy in --work")
     ap.add_argument("--killAfterS", type=float, default=20.0,
                     help="seconds from POST /refresh to the kill (phase B)")
-    ap.add_argument("--holdFile", default=None,
-                    help="keep the restarted server up until this file exists")
+    ap.add_argument("--checkQueries", type=int, default=0,
+                    help="phase B: ask the restarted server this many queries of the serving "
+                         "mix and hold its answers against the kernel and plain paths")
     args = ap.parse_args(argv)
 
     from spaghettisearch_tpu_torch import bench
@@ -434,13 +536,17 @@ def main(argv: list[str] | None = None, on_restart=None) -> dict:
     if not args.skip_copy:
         src = bench.ensure_bench_corpus(args.pages, device=device, seed=args.seed)
         _copy(src, work, with_snapshot=args.phase in ("b", "all"))
-    if args.holdFile and on_restart is None:
-        on_restart = hold_until(args.holdFile)
     results = []
     if args.phase in ("a", "all"):
         results.append(phase_a(work, card))
     if args.phase in ("b", "all"):
+        answers: dict = {}
+        if args.checkQueries:
+            on_restart = ask(check_queries(work, args.checkQueries, args.seed), answers,
+                             on_restart)
         results.append(phase_b(work, card, str(device), args.killAfterS, args.pages, on_restart))
+        if args.checkQueries:
+            results[-1]["restart_check"] = restart_check(work, str(device), answers)
     return {"crash_recovery": results}
 
 

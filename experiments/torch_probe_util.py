@@ -14,6 +14,8 @@ fallback to the CPU), calls run(), and prints the result as its last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import sys
@@ -187,3 +189,252 @@ def reset_launches() -> None:
 
     membership.reset_launches()
     mixed.reset_launches()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the scorers through the kernels' plain versions (the on-card
+    reference of an exactness check): K1, K2, K3 and K4."""
+    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+
+    saved = (membership.forward_scores_2sec, membership.forward_scores,
+             mixed.mixed_scores_2sec, fused.fused_final_scores)
+
+    def k2_plain(t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, qn, ph_ids,
+                 ph_valid, pn, *, emit_counts=True, qnb=None, body_tmax=None,
+                 tmax_stage="kw"):
+        out = mixed.plain_mixed_scores(
+            t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, ph_ids, ph_valid, qnb=qnb
+        )
+        return out if emit_counts else (out[0], None, out[2], None)
+
+    def k3_plain(ftT, fwT, term_ids, qn=None, *, emit_counts=True):
+        s, c = membership.plain_section_scores(ftT, fwT, term_ids)
+        return s, (c if emit_counts else None)
+
+    membership.forward_scores_2sec = membership.plain_forward_scores_2sec
+    membership.forward_scores = k3_plain
+    mixed.mixed_scores_2sec = k2_plain
+    fused.fused_final_scores = fused.plain_fused_final_scores
+    try:
+        yield
+    finally:
+        (membership.forward_scores_2sec, membership.forward_scores,
+         mixed.mixed_scores_2sec, fused.fused_final_scores) = saved
+
+
+@functools.lru_cache(maxsize=None)
+def _spin_cycles_per_ms(index: int) -> float:
+    """Clock cycles of torch.cuda._sleep per ms on card `index` (measured)."""
+    import torch
+
+    with torch.cuda.device(index):
+        torch.cuda._sleep(1_000_000)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        return 20_000_000 / start.elapsed_time(end)
+
+
+def _graph_error(exc: BaseException) -> str:
+    """An exception during CUDA-graph capture and the innermost call of
+    this repository it passed through (the call that broke the capture)."""
+    import traceback
+
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if f.filename.startswith(REPO) and "torch_probe_util" not in f.filename]
+    where = (f"{os.path.relpath(frames[-1].filename, REPO)}:{frames[-1].lineno} "
+             f"`{frames[-1].line}`") if frames else "outside this repository"
+    return f"{type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''} (at {where})"
+
+
+def capture_graph(fns, device):
+    """Capture the thunks `fns`, one after another, into one CUDA graph
+    (after a warm run on a side stream, as torch.cuda.graph asks). -> (the
+    graph, the outputs it writes on each replay), or (None, the capture's
+    error, see _graph_error)."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [fn() for fn in fns]
+    except RuntimeError as exc:
+        torch.cuda.synchronize(device)
+        return None, _graph_error(exc)
+    return graph, outs
+
+
+def timed_ways(fns, device, reps: int) -> tuple[dict, list, str | None]:
+    """One batch's program per thunk in `fns` (each returns a tuple of
+    tensors), timed five ways, each best of `reps`, in ms per batch:
+      queued        the N calls back to back, one synchronization, host wall;
+      serial        each call synchronized before the next, host wall;
+      dispatch_only the host wall of the same N calls before that
+                    synchronization (what the host pays to queue a batch);
+      device_only   CUDA events around each call, queued behind a spin
+                    kernel that holds the stream until the host has queued
+                    the call, so no host gap enters (the card's counterpart
+                    of a chain of batches inside one compiled program; None
+                    if a hold ended first);
+      graph         one replay of a CUDA graph of the N calls.
+    device_only and graph are None on the CPU; graph is None when capture
+    fails, and the third value then says which call broke it. -> (ms, the
+    outputs of each way {name: list per batch}, the capture error)."""
+    import torch
+
+    n = len(fns)
+    on_card = torch.device(device).type == "cuda"
+    outs: dict[str, list] = {}
+    for fn in fns:  # warm
+        fn()
+    sync(device)
+    best = {"queued": float("inf"), "dispatch_only": float("inf")}
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        got = [fn() for fn in fns]
+        t1 = time.perf_counter()
+        sync(device)
+        t2 = time.perf_counter()
+        best["queued"] = min(best["queued"], (t2 - t0) / n)
+        best["dispatch_only"] = min(best["dispatch_only"], (t1 - t0) / n)
+        outs["queued"] = got
+    ms = {k: v * 1e3 for k, v in best.items()}
+    serial = float("inf")
+    for _ in range(max(reps, 1)):
+        got = []
+        t0 = time.perf_counter()
+        for fn in fns:
+            got.append(fn())
+            sync(device)
+        serial = min(serial, (time.perf_counter() - t0) / n)
+        outs["serial"] = got
+    ms["serial"] = serial * 1e3
+    ms["device_only"] = ms["graph"] = None
+    if not on_card:
+        return ms, outs, None
+    # each batch behind its own hold: N batches at once can overflow the
+    # card's launch queue, and the host then waits for the hold to end
+    hold = int((4 * ms["dispatch_only"] + 2.0) * _spin_cycles_per_ms(
+        torch.device(device).index or 0))
+    dev_best, held = float("inf"), True
+    for _ in range(max(reps, 1)):
+        events, got = [], []
+        for fn in fns:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(hold)
+            start.record()
+            got.append(fn())
+            end.record()
+            held &= not start.query()  # the hold outlasted the host's queueing
+            events.append((start, end))
+        sync(device)
+        dev_best = min(dev_best, sum(a.elapsed_time(b) for a, b in events) / n)
+        outs["device_only"] = got
+    ms["device_only"] = dev_best if held else None
+    graph, got = capture_graph(fns, device)
+    if graph is None:
+        return ms, outs, got
+    graph.replay()
+    sync(device)
+    g_best = float("inf")
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        graph.replay()
+        sync(device)
+        g_best = min(g_best, (time.perf_counter() - t0) / n)
+    ms["graph"] = g_best * 1e3
+    outs["graph"] = got
+    return ms, outs, None
+
+
+def same_outputs(outs: dict) -> dict:
+    """Each way's outputs of timed_ways against the queued ones, bit for
+    bit. -> {way: equal}."""
+    ref = outs["queued"]
+    return {way: all(equal(a, b) for a, b in zip(got, ref)) for way, got in outs.items()
+            if way != "queued"}
+
+
+def topk_agree(got, want) -> dict:
+    """Two (scores, ids) top-k results, numpy or tensors, by
+    check.compare_topk: -inf slots equal, values within its rtol, ids equal
+    except at tied values. -> its report ("ok", "max_abs_err", ...)."""
+    import torch
+
+    from spaghettisearch_tpu_torch.ops.kernels import check
+
+    def as_t(x):
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+
+    return check.compare_topk(tuple(map(as_t, got)), tuple(map(as_t, want)))
+
+
+def count_uploads(eng, batch: list) -> dict:
+    """The host arrays one rank_async of `batch` puts on the device (the
+    engine's _to_dev calls) and their bytes."""
+    from spaghettisearch_tpu_torch.retrieval import engine as eng_mod
+
+    seen = []
+    saved = eng_mod._to_dev
+
+    def counted(x, device):
+        seen.append(np.ascontiguousarray(x).nbytes)
+        return saved(x, device)
+
+    eng_mod._to_dev = counted
+    try:
+        eng.rank_async(batch).finish()
+    finally:
+        eng_mod._to_dev = saved
+    return {"uploads": len(seen), "bytes": int(sum(seen))}
+
+
+def same_results(got: list[dict], want: list[dict], rtol: float = 1e-6) -> bool:
+    """Equal ranked result lists up to ties: every position's FinalRank
+    within rtol relative of the reference's, and where the Urls differ the
+    scores tie (bench.py --mode parity's rule, extended to the k-th cut);
+    the other fields equal where the Urls are."""
+    if len(got) != len(want):
+        return False
+    ref = {r["Url"]: r["FinalRank"] for r in want}
+
+    def tol(a, b):
+        return abs(a - b) <= rtol * max(abs(b), 1e-9)
+
+    for g, w in zip(got, want):
+        if not tol(g["FinalRank"], w["FinalRank"]):
+            return False
+        if g["Url"] != w["Url"]:
+            if not tol(ref.get(g["Url"], want[-1]["FinalRank"]), w["FinalRank"]):
+                return False
+        else:
+            for key in ("Page_title", "Summary", "Children", "Parents", "Words_mapping"):
+                if g[key] != w[key]:
+                    return False
+    return True
+
+
+def pipelined_ms(eng, batch: list, reps: int, chain: int, topk: int = 50) -> float:
+    """QueryEngine.rank_async of `batch` `chain` times queued, then finish()
+    each: best of reps, ms per batch on the host clock (after two untimed
+    batches)."""
+    for h in [eng.rank_async(batch, topk) for _ in range(2)]:
+        h.finish()
+    best = float("inf")
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        for h in [eng.rank_async(batch, topk) for _ in range(chain)]:
+            h.finish()
+        best = min(best, (time.perf_counter() - t0) / chain)
+    return best * 1e3

@@ -9,10 +9,16 @@ tier's modes, each a process of its own, each held to its bar.
 1m: the 1,000,000-page corpus; scale2m --pages 1000000 (residency, K1 and
     K2 per call beside their bounds), parity1m (256 queries against the
     oracle, its queries over the host's cores), serve1m and serve1m
-    --routeMix (512 connections); then, while the budget lasts, the nine
-    probes that run at 100k in chip_smoke.py (phrase-delta and eight of
-    the corpus probes) at 1M, two at a time, the split probe first. --probes
-    A,B: the build and those probes only.
+    --routeMix (512 connections); then STEPS: the roofline (the card's
+    stream peak and the 1M mixed program, alone), the crash soak
+    (torch_crash_recovery.py --phase all at 1M on a copy of the store,
+    started when the disk holds the copy and the budget leaves CRASH_S;
+    the holds of chip_smoke.py phase 18) and beside it the shard-scale
+    probe (8 and 4 shards, projected from this call's serve1m result);
+    then, while the budget lasts, the ten probes whose originals default
+    to the 1M corpus (phrase-delta, eight corpus probes, kw_gap), two at
+    a time, the split probe first. --probes A,B: the build and those
+    steps and probes only (shard_scale_probe brings serve1m before it).
 2m: the 2,000,000-page corpus; parity2m (128 queries), sparse2m (16
     queries), then scale2m if the budget leaves SCALE2M_S for it; each
     mode a process of its own.
@@ -22,7 +28,10 @@ score_max_rel_err <= 1e-6, K2 launched; serve every answer 200, no
 protocol error, the server's segregation line "active"; scale2m at 2M the
 fused lane live, int16 planes within POS_T_BUDGET_BYTES, no hot cache, the
 forward arrays on the host; sparse2m no planes, the matcher ran, every
-divergence tie-explained; each probe's own exactness check. Prints the
+divergence tie-explained; each probe's own exactness check; the crash
+soak's committed pages intact, killed mid-/refresh, the stale sidecar
+rebuilt, the restarted server's answers equal to the kernel and plain
+paths. Prints the
 card (nvidia-smi name and power limit), the host (MemTotal, cores, free
 disk), each step's seconds (the build's per step, from its BUILT.json),
 and as its last line one JSON object with every result; writes each
@@ -46,7 +55,21 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
 PROBES = ("split_probe", "phrase_delta_probe", "probe1m_decomp", "mixed_tbound_probe",
-          "phrase_tmax_probe", "post16_probe", "mixed256_probe", "probe1m", "segregate_probe")
+          "phrase_tmax_probe", "post16_probe", "mixed256_probe", "probe1m", "segregate_probe",
+          "kw_gap_probe")
+#: the 1M steps that take more than a page count: the shard-scale probe
+#: (fed this call's serve1m result), the roofline (the stream peak and the
+#: 1M mixed program, alone on the card) and the crash soak (a copy of the
+#: store, at its original's 1M)
+STEPS = ("roofline", "crash_recovery", "shard_scale_probe")
+#: the crash soak's queries to its restarted server (chip_smoke.py phase 18's)
+CRASH_QUERIES = 64
+#: disk the crash soak's copy needs beyond the store and snapshot it copies
+#: (the appended pages, the rebuilt hydration sidecar, the logs)
+CRASH_DISK_MARGIN = 4 << 30
+#: seconds of the budget the crash soak needs at 1M (two servers of the 1M
+#: index, each writing its hydration sidecar, and two digests of the store)
+CRASH_S = 1500.0
 RTOL = 1e-6
 #: seconds a step may run past the budget (the last mode's, results.json's)
 GRACE_S = 200.0
@@ -203,6 +226,75 @@ def _probes(run: Run, todo: list[str], n_pages: int, device: str, store_bytes: i
     run.results["probes_two_at_a_time"] = pair
 
 
+def _hold_crash(run: Run, r: dict | None) -> None:
+    """The crash soak's own holds (torch_crash_recovery.holds), as
+    chip_smoke.py phase 18 holds them."""
+    if r is None:
+        return
+    import torch_crash_recovery
+
+    for ok, what in torch_crash_recovery.holds(r["crash_recovery"]):
+        run.hold("crash_recovery", ok, what)
+
+
+def _start_crash(run: Run, n_pages: int, device: str, root: str):
+    """Start the crash soak on a copy of the corpus when the disk holds the
+    copy. -> its job, or None (the reason recorded, a failed hold)."""
+    need = _dir_bytes(os.path.join(root, "store")) + _dir_bytes(os.path.join(root, "snapshot")) \
+        + CRASH_DISK_MARGIN
+    work = os.path.join(REPO, "build", "crash", f"corpus{n_pages // 1000}k")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.dirname(work), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(work)).free
+    run.results["crash_disk"] = {"need_bytes": need, "free_bytes": free}
+    print(f"# crash_recovery: the copy needs {need} B, {free} B free", flush=True)
+    if free < need:
+        run.hold("crash_recovery", False, f"disk for the copy: {free} B free < {need} B")
+        return None
+    if run.left() < CRASH_S:
+        run.results["crash_recovery"] = {"not_run": f"{run.left():.0f}s of the budget left, "
+                                                    f"under CRASH_S {CRASH_S:.0f}"}
+        print(f"# crash_recovery: not run ({run.results['crash_recovery']['not_run']})",
+              flush=True)
+        return None
+    return run.start("crash_recovery", [
+        sys.executable, os.path.join(HERE, "torch_crash_recovery.py"), "--phase", "all",
+        "--pages", str(n_pages), "--device", device, "--work", work,
+        "--checkQueries", str(CRASH_QUERIES)])
+
+
+def _steps(run: Run, todo: list[str], n_pages: int, device: str, serve1m: dict | None,
+           store_bytes: int, root: str) -> None:
+    """STEPS and PROBES named in `todo` at n_pages: the roofline alone,
+    then the crash soak started and, beside it, the shard-scale probe and
+    the probes (_probes); each held to its own check."""
+    if "roofline" in todo:
+        if run.left() > PROBE_S:
+            res = run.run("roofline", [sys.executable, os.path.join(HERE, "torch_roofline.py"),
+                                       "--skip-headline", "--pages1m", str(n_pages),
+                                       "--device", device], run.cap(1800))
+            if res is not None:
+                run.hold("roofline", res.get("ok") is True, "its exactness check")
+        else:
+            run.results["roofline"] = {"not_run": f"{run.left():.0f}s of the budget left"}
+    crash = _start_crash(run, n_pages, device, root) if "crash_recovery" in todo else None
+    if "shard_scale_probe" in todo:
+        if serve1m is None:
+            run.hold("shard_scale_probe", False, "a serve1m result to project from")
+        else:
+            path = os.path.join(run.out, "serve1m_result.json")
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(serve1m, f)
+            res = run.run("shard_scale_probe", [
+                sys.executable, os.path.join(HERE, "torch_shard_scale_probe.py"), str(n_pages),
+                "--device", device, "--serve1m", path], run.cap(1800))
+            if res is not None:
+                run.hold("shard_scale_probe", res.get("ok") is True, "its exactness check")
+    _probes(run, [p for p in todo if p in PROBES], n_pages, device, store_bytes)
+    if crash is not None:
+        _hold_crash(run, run.finish(crash, run.cap(3600)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tier", choices=("1m", "2m"))
@@ -256,10 +348,14 @@ def main(argv=None) -> int:
     queries = ["--queries", str(args.queries)] if args.queries else []
     if args.tier == "1m" and args.probes:
         todo = args.probes.split(",")
-        unknown = set(todo) - set(PROBES)
+        unknown = set(todo) - set(PROBES) - set(STEPS)
         if unknown:
-            raise SystemExit(f"--probes: {sorted(unknown)} not in {PROBES}")
-        _probes(run, todo, n_pages, args.device, store_bytes)
+            raise SystemExit(f"--probes: {sorted(unknown)} not in {STEPS + PROBES}")
+        serve1m = None
+        if "shard_scale_probe" in todo:  # its host stages come from this call's serve1m
+            serve1m = run.run("serve1m", _bench("serve1m", args.device, *pages), run.cap(1800))
+            _hold_serve(run, "serve1m", serve1m)
+        _steps(run, todo, n_pages, args.device, serve1m, store_bytes, root)
     elif args.tier == "1m":
         res = run.run("scale_1m", _bench("scale2m", args.device, *pages), run.cap(1800))
         if res is not None and on_card:
@@ -268,10 +364,13 @@ def main(argv=None) -> int:
                      run.run("parity1m", _bench("parity1m", args.device, *pages, *queries),
                              run.cap(2400)),
                      on_card)
+        served = {}
         for name, flags in (("serve1m", ()), ("serve1m_routes", ("--routeMix",))):
-            _hold_serve(run, name, run.run(name, _bench("serve1m", args.device, *pages, *flags),
-                                           run.cap(1800)))
-        _probes(run, list(PROBES), n_pages, args.device, store_bytes)
+            served[name] = run.run(name, _bench("serve1m", args.device, *pages, *flags),
+                                   run.cap(1800))
+            _hold_serve(run, name, served[name])
+        _steps(run, [*STEPS, *PROBES], n_pages, args.device, served["serve1m"], store_bytes,
+               root)
     else:
         _hold_parity(run, "parity2m",
                      run.run("parity2m", _bench("parity2m", args.device, *pages, *queries),

@@ -1429,11 +1429,60 @@ def _fresh(mode: str, device):
     return run
 
 
+#: serve1m's bar in the original ladder (bench.py:1550), in req/s
+SERVE1M_BAR_QPS = 2000.0
+
+
+def _run_script(cmd: list[str], timeout_s: float) -> dict:
+    """Run a script of the repository in a process of its own. -> the JSON
+    object of its last stdout line."""
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s, cwd=REPO)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:3])} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-1500:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def serve1m_projected(serve1m: dict | None, device, seed: int = 0,
+                      n_pages: int = 1_000_000) -> dict:
+    """The ladder's serve1m_projected stage: experiments/
+    torch_shard_scale_probe.py in a process of its own on the 1M corpus's
+    8- and 4-shard doc slices, one card, fed this ladder's serve1m result
+    (its batcher spans and mean batch); the value is the 8-shard
+    pipeline-projected rate. The cross-card copies are not measured and
+    not in it."""
+    if not serve1m or "spans_ms" not in serve1m:
+        raise RuntimeError(f"no serve1m result to project from: {serve1m}")
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    path = os.path.join(BENCH_DIR, "serve1m_result.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(serve1m, f)
+    data = _run_script(
+        [sys.executable, os.path.join(REPO, "experiments", "torch_shard_scale_probe.py"),
+         str(n_pages), "--device", str(device), "--seed", str(seed), "--serve1m", path],
+        timeout_s=5400,
+    )
+    val = data["shards8"]["pipeline_projected_qps"]
+    return {
+        "metric": "serve1m_projected_1card_slices_qps",
+        "value": val,
+        "unit": "qps",
+        "vs_baseline": round(val / SERVE1M_BAR_QPS, 3),
+        "method": "the shard-local programs measured on one card at the 1M/8 and 1M/4 doc "
+                  "slices of the 1M corpus, the port's merge of the pieces timed on the card, "
+                  "the host stages (dispatch, assemble, mean batch) from this ladder's serve1m; "
+                  "the cross-card copies not measured and left out",
+        **data,
+    }
+
+
 def emit_results(out_path: str, device, seed: int = 0) -> None:
     """Run every mode at its default size in sequence and write one JSON
     file: the device, the host, its calibration score, the git head and
     the time, then one entry per stage (an error is recorded and the run
-    goes on); the crawl-built stages on the corpora of `seed`. The 1M and 2M stages join when their corpora are built."""
+    goes on); the crawl-built stages on the corpora of `seed`. The 1M and
+    2M stages join when their corpora are built; serve1m_projected, last
+    of the 1M stages, projects from this run's serve1m."""
     try:
         head = subprocess.run(
             ["git", "rev-parse", "--short", "HEAD"], capture_output=True, text=True, cwd=REPO,
@@ -1470,6 +1519,8 @@ def emit_results(out_path: str, device, seed: int = 0) -> None:
         stages.insert(5, ("serve1m", stage("serve1m")))
         stages.insert(7, ("parity1m", stage("parity1m")))
         stages.append(("serve1m_routes", stage("serve1m", routeMix=True)))
+        stages.append(("serve1m_projected",
+                       lambda: serve1m_projected(results.get("serve1m"), device, seed)))
     if os.path.exists(os.path.join(corpus_root(2_000_000), "BUILT.json")):
         stages.append(("scale2m", stage("scale2m")))
         stages.append(("parity2m", stage("parity2m")))

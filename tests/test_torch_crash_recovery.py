@@ -149,6 +149,53 @@ def test_phase_b_restarted_server_answers_like_jax(bench_dir, tmp_path, monkeypa
         assert _same_up_to_ties(got, w), q
 
 
+def test_check_queries_held_by_holds(bench_dir, tmp_path, monkeypatch):
+    """--phase all --checkQueries: the restarted server's answers to the
+    smoke's mix, from several clients, equal the kernel and plain paths on
+    the recovered store, and holds() passes every hold but the kill's
+    timing, which this size cannot promise."""
+    monkeypatch.setattr(bench, "BENCH_DIR", bench_dir)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    script = _script()
+    res = script.main(["--phase", "all", "--pages", str(PAGES), "--device", "cpu",
+                       "--work", str(tmp_path / "work"), "--killAfterS", "1",
+                       "--checkQueries", "16"])
+    a, b = res["crash_recovery"]
+    c = b["restart_check"]
+    assert c["queries"] == 16 and c["keyword"] > 0 and c["phrase"] > 0 and c["results"] > 0
+    failed = [what for ok, what in script.holds([a, b]) if not ok]
+    assert failed == ([] if b["killed_mid_refresh"] else ["phase B: killed mid-/refresh"])
+
+
+_A = {"phase": "a", "post_recovery_append": True, "flushes_before_kill": 2,
+      "committed_pages_ok": 100, "docs_before": 200, "docs": 300}
+_B = {"phase": "b", "killed_mid_refresh": True, "sidecar_stale_detected": True,
+      "sidecar_rebuilt": True, "tmp_sidecar_loaded": False,
+      "restart_check": {"queries": 64, "equal_kernel_path": True, "equal_plain_path": True}}
+
+
+@pytest.mark.parametrize("phase,change,failed", [
+    ("a", {}, []),
+    ("a", {"committed_pages_ok": 99}, [0]),
+    ("a", {"flushes_before_kill": 1, "committed_pages_ok": 50, "docs": 250}, [0]),
+    ("a", {"docs": 299}, [0]),
+    ("a", {"post_recovery_append": False}, [0]),
+    ("b", {"killed_mid_refresh": False}, [1]),
+    ("b", {"sidecar_stale_detected": False}, [2]),
+    ("b", {"sidecar_rebuilt": False}, [2]),
+    ("b", {"tmp_sidecar_loaded": True}, [2]),
+    ("b", {"restart_check": None}, [3]),
+    ("b", {"restart_check": {"queries": 64, "equal_kernel_path": True,
+                             "equal_plain_path": False}}, [3]),
+], ids=["all_held", "a_lost_page", "a_one_flush", "a_lost_doc", "a_no_append", "b_not_mid",
+        "b_not_stale", "b_not_rebuilt", "b_tmp_loaded", "b_no_check", "b_plain_differs"])
+def test_holds_fail_exactly_where_a_phase_fails(phase, change, failed):
+    a, b = dict(_A), dict(_B)
+    (a if phase == "a" else b).update(change)
+    got = [i for i, (ok, _) in enumerate(_script().holds([a, b])) if not ok]
+    assert got == failed
+
+
 def test_torn_log_record_is_cut_before_the_next_write(tmp_path):
     """A record torn by a kill (its header and part of its value) is
     dropped at open, and the next writer's records land after the last

@@ -933,3 +933,23 @@ def test_dryrun_multichip_on_cuda(cuda):
     np.testing.assert_allclose(out["ranks"].cpu().numpy(), want["ranks"].numpy(), rtol=1e-5)
     rows = [[(r["Url"], r["FinalRank"]) for r in res] for res in (out["results"], want["results"])]
     assert _same_up_to_ties(*rows)
+
+
+def test_shard_scale_probe_slice_on_cuda(cuda, corpus):
+    """experiments/torch_shard_scale_probe.py's 8-shard slice (the first 512
+    docs of the 3,000-page corpus) on the card: its kw-128 batch's top-50
+    through the kernels equals the plain path's (check.compare_topk), and
+    K1 and K2 launched on its three batches."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "experiments"))
+    import torch_shard_scale_probe as probe
+
+    db, snap = corpus
+    res = probe.run(snap, db, cuda, reps=1, say=lambda msg: None, shards=(8,))
+    r = res["shards8"]
+    assert res["ok"] and r["local_docs"] == 512
+    assert r["kw128_vs_plain"]["ok"] and r["kw128_vs_plain"]["ranked"] > 0
+    assert r["launches"]["K1"] > 0 and r["launches"]["K2"] > 0 and r["merge_ms"] > 0
