@@ -1140,10 +1140,12 @@ def bench_serve(
             "segregation": segregation,
             "ph_batches": mb.get("ph_batches"),
             "batches": mb.get("batches"),
-            "rank_device_ms": (stats.get("rank.device") or {}).get("mean_ms"),
+            # the engine's launch span: the host's call into the scorer (the
+            # kernels queue asynchronously) and the result copies' queueing
+            "rank_launch_ms": (stats.get("engine.launch") or {}).get("mean_ms"),
             "serve_query_ms": (stats.get("serve.query") or {}).get("mean_ms"),
-            # per-stage pipeline spans (ms per batch): rank.device is the
-            # asynchronous dispatch; the wait for the device lands in fetch
+            # per-stage pipeline spans (ms per batch): the wait for the
+            # device lands in fetch
             "spans_ms": {
                 k: (stats.get(f"batch.{k}") or {}).get("mean_ms")
                 for k in ("wait", "parse", "dispatch", "fetch", "assemble", "resolve")

@@ -36,7 +36,7 @@ def _small_engine(device):
 
 
 def entry(device: str | torch.device = "cuda"):
-    """The production fused mixed step (engine._rank_fused): keyword
+    """The production fused mixed step (the engine's fused lane): keyword
     forward-membership scoring + dense in-kernel phrase matching (K2) ->
     fold -> cosine/PageRank blend -> exact top-k, on a 2,048-doc synthetic
     snapshot. -> (fn, example_args): fn(*example_args) -> (scores [8, 10],

@@ -28,6 +28,7 @@ import torch
 from ..index.snapshot import IndexSnapshot, SectionCSR
 from ..ops import scoring as _scoring
 from ..ops.kernels import membership as _k1
+from ..utils.timing import TRACER
 
 
 def bm25_posting_weights(
@@ -56,8 +57,9 @@ def bm25_posting_weights(
 
 
 def _bm25_finalize(ts, bs, candidate, title_boost: float, body_boost: float):
-    final = title_boost * ts + body_boost * bs
-    return torch.where(candidate, final, torch.full_like(final, -float("inf")))
+    with TRACER.range("scoring.finalize"):
+        final = title_boost * ts + body_boost * bs
+        return torch.where(candidate, final, torch.full_like(final, -float("inf")))
 
 
 @dataclass
@@ -119,15 +121,18 @@ class BM25Ranker:
         positive (idf = ln(x+1) > 0, tf term > 0), so the counts are always
         elided (candidacy <=> score > 0); no hot split, no body_tmax."""
         t, b = self._fwd["title"], self._fwd["body"]
-        ts, _, bs, _ = _k1.forward_scores_2sec(
-            t.ftT, t.fwT, b.ftT, b.fwT, term_ids, qn, emit_counts=False,
-        )
+        with TRACER.range("scoring.kernel"):
+            ts, _, bs, _ = _k1.forward_scores_2sec(
+                t.ftT, t.fwT, b.ftT, b.fwT, term_ids, qn, emit_counts=False,
+            )
         return ts, bs
 
     def score_keywords(self, index, term_ids, qlen, topic_probs, topk=None, qn=None):
         k = min(topk or self.topk, index.n_docs) or 1
         ts, bs = self._sections(term_ids, qn)
-        final = _bm25_finalize(ts, bs, ts + bs > 0, self.title_boost, self.body_boost)
+        with TRACER.range("scoring.counts"):
+            candidate = ts + bs > 0
+        final = _bm25_finalize(ts, bs, candidate, self.title_boost, self.body_boost)
         return _scoring.exact_top_k(final, k, doc_map=index.doc_perm)
 
     def score_csr(
@@ -147,7 +152,9 @@ class BM25Ranker:
             term_ids, ph_docs, ph_tw, ph_bw, ph_fl,
             posting_cap=index.posting_cap, n_docs=index.match_pad,
         )
-        final = _bm25_finalize(ts, bs, tc + bc > 0, self.title_boost, self.body_boost)
+        with TRACER.range("scoring.counts"):
+            candidate = tc + bc > 0
+        final = _bm25_finalize(ts, bs, candidate, self.title_boost, self.body_boost)
         return _scoring.exact_top_k(final, k, doc_map=index.doc_perm)
 
     def score_with_phrase(
@@ -157,8 +164,9 @@ class BM25Ranker:
         k = min(topk or self.topk, index.n_docs) or 1
         ts, bs = self._sections(term_ids, qn)
         pacc = _scoring.phrase_fold(ts.shape[1], ph_docs, ph_tw, ph_bw, ph_fl)
-        candidate = (ts + bs + pacc[:, :, 0] + pacc[:, :, 1] > 0) | (pacc[:, :, 2] > 0)
-        final = _bm25_finalize(
-            ts + pacc[:, :, 0], bs + pacc[:, :, 1], candidate, self.title_boost, self.body_boost
-        )
+        with TRACER.range("scoring.counts"):
+            candidate = (ts + bs + pacc[:, :, 0] + pacc[:, :, 1] > 0) | (pacc[:, :, 2] > 0)
+        with TRACER.range("scoring.fold"):
+            ts, bs = ts + pacc[:, :, 0], bs + pacc[:, :, 1]
+        final = _bm25_finalize(ts, bs, candidate, self.title_boost, self.body_boost)
         return _scoring.exact_top_k(final, k, doc_map=index.doc_perm)

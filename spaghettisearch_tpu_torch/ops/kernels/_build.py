@@ -18,6 +18,8 @@ import subprocess
 import threading
 from dataclasses import dataclass
 
+from ...utils.timing import TRACER
+
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "csrc",
@@ -76,10 +78,11 @@ def load_library(name: str) -> KernelLibrary:
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, src],
-                capture_output=True, text=True, timeout=600,
-            )
+            with TRACER.span("kernels.build"):
+                proc = subprocess.run(
+                    [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, src],
+                    capture_output=True, text=True, timeout=600,
+                )
             seconds = time.perf_counter() - t0
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:

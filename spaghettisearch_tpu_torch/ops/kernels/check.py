@@ -92,7 +92,7 @@ def mixed_batch(
     benchmark mix's share). With `snap`, half of those are 2-3 term phrases read off a real
     document's adjacent body positions (so chains hold); the rest are 1-5
     random terms, some repeated. Rows sorted phrase-rows-first like
-    engine._rank_fused."""
+    the engine's fused lane."""
     rng = np.random.default_rng(seed + 7919)
     kw = keyword_batch(index, b, q, seed, df=df)
     ph_ids = np.full((b, p), index.n_words, np.int32)
@@ -148,7 +148,7 @@ _FIXED_B = {"b13": 13, "b80": 80}
 
 def adversarial_batch(index, kind: str, seed: int, df=None, snap=None, b: int = 16) -> dict:
     """A mixed batch (keyword and phrase fields, phrase rows first like
-    engine._rank_fused) built to stress the probe tables; Q=4 and P=4
+    the engine's fused lane) built to stress the probe tables; Q=4 and P=4
     unless said:
       dup         a term two or three times in a row (multiplicity);
       every_row   the most frequent term in every row, and as position 0

@@ -22,6 +22,11 @@ Scoring semantics match the reference exactly:
 - final = (0.33*sqd + 0.38*title + 0.29*body) * 100 (get_metadata.go:69);
 - only candidate docs (>= 1 posting hit or a phrase match) are ranked;
   non-candidates come back as -inf.
+
+Each device stage runs inside a TRACER.range (scoring.kernel, .hot,
+.counts, .fold, .csr, .finalize with .sqd inside it, .topk), which a
+torch.profiler trace uses to credit the device work to the stage that
+launched it; with no profiler recording a range costs one flag read.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
+from ..utils.timing import TRACER
 
 from .kernels import fused as _k4
 from .kernels import membership as _k1
@@ -89,24 +95,25 @@ def exact_top_k(
     is above it, and at most k chunks can have such a max. With doc_map
     (doc-sorted layout) the ids are mapped back to natural ids and the
     order is normalized to (score desc, natural id asc)."""
-    b, d = scores.shape
-    k = min(k, d)
-    if d < chunk_min_docs or d < 2 * chunk * k:
-        tv, tid = _top_k_lowest_index(scores, k)
-    else:
-        pad = (-d) % chunk
-        xp = torch.nn.functional.pad(scores, (0, pad), value=-float("inf")) if pad else scores
-        m = xp.shape[1] // chunk
-        ch = xp.view(b, m, chunk)
-        cmax = ch.amax(dim=2)  # [B, M]
-        _, ci = _top_k_lowest_index(cmax, k)  # winning chunk ids
-        cand = torch.gather(ch, 1, ci[:, :, None].expand(b, k, chunk)).reshape(b, k * chunk)
-        tv, tp = _top_k_lowest_index(cand, k)
-        tid = torch.gather(ci, 1, tp // chunk) * chunk + tp % chunk
-    tid = tid.to(torch.int32)
-    if doc_map is not None:
-        tid = doc_map[tid.long()]
-    return _sort_score_desc_id_asc(tv, tid)
+    with TRACER.range("scoring.topk"):
+        b, d = scores.shape
+        k = min(k, d)
+        if d < chunk_min_docs or d < 2 * chunk * k:
+            tv, tid = _top_k_lowest_index(scores, k)
+        else:
+            pad = (-d) % chunk
+            xp = torch.nn.functional.pad(scores, (0, pad), value=-float("inf")) if pad else scores
+            m = xp.shape[1] // chunk
+            ch = xp.view(b, m, chunk)
+            cmax = ch.amax(dim=2)  # [B, M]
+            _, ci = _top_k_lowest_index(cmax, k)  # winning chunk ids
+            cand = torch.gather(ch, 1, ci[:, :, None].expand(b, k, chunk)).reshape(b, k * chunk)
+            tv, tp = _top_k_lowest_index(cand, k)
+            tid = torch.gather(ci, 1, tp // chunk) * chunk + tp % chunk
+        tid = tid.to(torch.int32)
+        if doc_map is not None:
+            tid = doc_map[tid.long()]
+        return _sort_score_desc_id_asc(tv, tid)
 
 
 # ---------------------------------------------------------------------- #
@@ -127,16 +134,18 @@ def finalize_scores(
     both the reference constants and the JAX package's custom-blend array
     do."""
     w_pr, w_title, w_body, scale = weights
-    qmag = torch.sqrt(query_len)[:, None]
-    title_n = title_score / (mag_title[None, :] * qmag)
-    body_n = body_score / (mag_body[None, :] * qmag)
-    title_n = torch.nan_to_num(title_n, nan=0.0, posinf=float("inf"), neginf=-float("inf"))
-    body_n = torch.nan_to_num(body_n, nan=0.0, posinf=float("inf"), neginf=-float("inf"))
-    # topic-sensitive importance: sqd[b, d] = topic_probs[b] . pagerank[d]
-    sqd = topic_probs @ pagerank.T
-    final = (w_pr * sqd + w_title * title_n + w_body * body_n) * scale
-    count = title_count + body_count
-    return torch.where(count > 0, final, torch.full_like(final, -float("inf")))
+    with TRACER.range("scoring.finalize"):
+        qmag = torch.sqrt(query_len)[:, None]
+        title_n = title_score / (mag_title[None, :] * qmag)
+        body_n = body_score / (mag_body[None, :] * qmag)
+        title_n = torch.nan_to_num(title_n, nan=0.0, posinf=float("inf"), neginf=-float("inf"))
+        body_n = torch.nan_to_num(body_n, nan=0.0, posinf=float("inf"), neginf=-float("inf"))
+        # topic-sensitive importance: sqd[b, d] = topic_probs[b] . pagerank[d]
+        with TRACER.range("scoring.sqd"):
+            sqd = topic_probs @ pagerank.T
+        final = (w_pr * sqd + w_title * title_n + w_body * body_n) * scale
+        count = title_count + body_count
+        return torch.where(count > 0, final, torch.full_like(final, -float("inf")))
 
 
 # ---------------------------------------------------------------------- #
@@ -172,11 +181,24 @@ def hot_body_scores(hot_w: torch.Tensor, hot_sids: torch.Tensor) -> torch.Tensor
 
 def _fold_hot(bs, bc, hot_w, hot_sids):
     if hot_w is not None and hot_sids is not None:
-        hot = hot_body_scores(hot_w, hot_sids)[:, : bs.shape[1]]
-        bs = bs + hot
-        if bc is not None:  # true-count path: hot candidacy must count too
-            bc = bc + (hot > 0).to(bs.dtype)
+        with TRACER.range("scoring.hot"):
+            hot = hot_body_scores(hot_w, hot_sids)[:, : bs.shape[1]]
+            bs = bs + hot
+            if bc is not None:  # true-count path: hot candidacy must count too
+                bc = bc + (hot > 0).to(bs.dtype)
     return bs, bc
+
+
+def _candidates(ts, bs, phrase_flag=None):
+    """The candidacy stand-in when the kernel elides its counts (every
+    weight > 0): a doc is a candidate iff its score (or a phrase match)
+    is > 0. -> (title count, body count)."""
+    with TRACER.range("scoring.counts"):
+        cand = ts + bs > 0
+        if phrase_flag is not None:
+            cand = cand | (phrase_flag > 0)
+        tc = cand.to(ts.dtype)
+        return tc, torch.zeros_like(tc)
 
 
 def score_queries_fused(
@@ -193,10 +215,11 @@ def score_queries_fused(
     both sections + finalization, then exact top-k. No qn bound, no hot
     split and no doc_map: under the doc-sorted layout the ids are
     permuted-space ids, as the JAX package's score_queries_fused returns."""
-    final = _k4.fused_final_scores(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
-        mag_title, mag_body, pagerankT, term_ids, query_len, topic_probs,
-    )
+    with TRACER.range("scoring.kernel"):
+        final = _k4.fused_final_scores(
+            title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
+            mag_title, mag_body, pagerankT, term_ids, query_len, topic_probs,
+        )
     return exact_top_k(final, topk)
 
 
@@ -212,11 +235,12 @@ def phrase_fold(
     """Scatter sparse phrase matches into [B, n_docs, 3] (title weight, body
     weight, match flag). Ids >= n_docs are pads and are dropped (the JAX
     package's scatter mode="drop" over an n_docs+1 wide accumulator)."""
-    b = ph_docs.shape[0]
-    acc = torch.zeros((b, n_docs + 1, 3), dtype=torch.float32, device=ph_docs.device)
-    idx = ph_docs.long().clamp(max=n_docs)[:, :, None].expand(-1, -1, 3)
-    acc.scatter_add_(1, idx, torch.stack([ph_tw, ph_bw, ph_fl], dim=-1))
-    return acc[:, :n_docs]
+    with TRACER.range("scoring.fold"):
+        b = ph_docs.shape[0]
+        acc = torch.zeros((b, n_docs + 1, 3), dtype=torch.float32, device=ph_docs.device)
+        idx = ph_docs.long().clamp(max=n_docs)[:, :, None].expand(-1, -1, 3)
+        acc.scatter_add_(1, idx, torch.stack([ph_tw, ph_bw, ph_fl], dim=-1))
+        return acc[:, :n_docs]
 
 
 def score_queries_forward(
@@ -236,14 +260,14 @@ def score_queries_forward(
     emit_counts: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Keyword-only path (kernel K1). -> (top scores [B, K], doc ids [B, K])."""
-    ts, tc, bs, bc = _k1.forward_scores_2sec(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
-        emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
-    )
+    with TRACER.range("scoring.kernel"):
+        ts, tc, bs, bc = _k1.forward_scores_2sec(
+            title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
+            emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
+        )
     bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
     if tc is None:  # counts elided: all weights > 0, candidacy <=> score > 0
-        tc = (ts + bs > 0).to(ts.dtype)
-        bc = torch.zeros_like(tc)
+        tc, bc = _candidates(ts, bs)
     final = finalize_scores(
         ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
     )
@@ -275,18 +299,20 @@ def score_queries_mixed(
     phrase matching + fold + finalize + top-k. body_tmax (doc-sorted
     layout) bounds the kernel's body loops that tmax_stage picks
     (kernels/mixed.py); the plain version ignores it (result-identical)."""
-    if pn is None:
-        pn = ph_valid.sum(dim=1).to(torch.int32)
     # derive candidacy AFTER the hot fold: a doc matched only by a hot body
     # term must still become a candidate
-    ts, tc, bs, bc = _k2.mixed_scores_padded(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
-        title_posT, body_posT, term_ids, qn, ph_ids, ph_valid, pn,
-        emit_counts=emit_counts, qnb=qnb, derive=False, body_tmax=body_tmax,
-        tmax_stage=tmax_stage,
-    )
+    with TRACER.range("scoring.kernel"):
+        if pn is None:
+            pn = ph_valid.sum(dim=1).to(torch.int32)
+        ts, tc, bs, bc = _k2.mixed_scores_padded(
+            title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
+            title_posT, body_posT, term_ids, qn, ph_ids, ph_valid, pn,
+            emit_counts=emit_counts, qnb=qnb, derive=False, body_tmax=body_tmax,
+            tmax_stage=tmax_stage,
+        )
     bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
-    ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)
+    with TRACER.range("scoring.counts"):
+        ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)
     final = finalize_scores(
         ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
     )
@@ -317,19 +343,21 @@ def score_queries_forward_phrase(
     Under the doc-sorted layout (doc_map set) phrase_doc_ids are already
     permuted-space ids: the matcher reads the index's remapped doc_ids."""
     n_docs = title_fwd.ftT.shape[1]
-    ts, tc, bs, bc = _k1.forward_scores_2sec(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
-        emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
-    )
+    with TRACER.range("scoring.kernel"):
+        ts, tc, bs, bc = _k1.forward_scores_2sec(
+            title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
+            emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
+        )
     bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
     pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
     if tc is None:  # counts elided: candidacy from scores + phrase flags
-        tc = ((ts + bs > 0) | (pacc[:, :, 2] > 0)).to(ts.dtype)
-        bc = torch.zeros_like(tc)
+        tc, bc = _candidates(ts, bs, pacc[:, :, 2])
     else:
-        tc = tc + pacc[:, :, 2]
-    ts = ts + pacc[:, :, 0]
-    bs = bs + pacc[:, :, 1]
+        with TRACER.range("scoring.counts"):
+            tc = tc + pacc[:, :, 2]
+    with TRACER.range("scoring.fold"):
+        ts = ts + pacc[:, :, 0]
+        bs = bs + pacc[:, :, 1]
     final = finalize_scores(
         ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
     )
@@ -383,17 +411,18 @@ def csr_scores(
 ):
     """Per-section (score, count) [B, n_docs] through the CSR formulation,
     with the sparse phrase matches (weights + candidacy) folded in."""
-    title_score, title_count = _scatter_scores(*_gather_section(
-        title_offsets, title_doc_ids, title_weights, term_ids, posting_cap
-    ), n_docs)
-    body_score, body_count = _scatter_scores(*_gather_section(
-        body_offsets, body_doc_ids, body_weights, term_ids, posting_cap
-    ), n_docs)
-    pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
-    return (
-        title_score + pacc[:, :, 0], title_count + pacc[:, :, 2],
-        body_score + pacc[:, :, 1], body_count,
-    )
+    with TRACER.range("scoring.csr"):
+        title_score, title_count = _scatter_scores(*_gather_section(
+            title_offsets, title_doc_ids, title_weights, term_ids, posting_cap
+        ), n_docs)
+        body_score, body_count = _scatter_scores(*_gather_section(
+            body_offsets, body_doc_ids, body_weights, term_ids, posting_cap
+        ), n_docs)
+        pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
+        return (
+            title_score + pacc[:, :, 0], title_count + pacc[:, :, 2],
+            body_score + pacc[:, :, 1], body_count,
+        )
 
 
 def score_dense(

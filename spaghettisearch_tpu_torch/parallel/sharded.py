@@ -770,7 +770,7 @@ def make_sharded_mixed_scorer(
     """The fused mixed lane on the mesh: per shard, K2 (keyword scoring and
     dense in-kernel phrase matching with per-ROW phrase inputs), the hot
     fold, candidacy, finalize and the local top-k; then the merge (cf. the
-    single-device engine._rank_fused). Needs the position planes
+    single-device engine's fused lane). Needs the position planes
     (ShardedIndex.pos_dense) and untruncated dense rows.
 
     Returns run(sidx, term_ids [B,Q], qlen [B], topic_probs [B,C],

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..index.snapshot import IndexSnapshot, SectionCSR
+from ..utils.timing import TRACER
 
 #: doc-axis padding granularity (the TPU scorer's doc block; kept for parity)
 DOC_BLOCK = 512
@@ -426,25 +427,26 @@ class DeviceIndex:
 
         # doc-sorted layout: default-on at the large-corpus tier; off when
         # any dense row would truncate
-        title_nt = section_nt(snap.title)
-        body_nt = section_nt(snap.body)
-        truncatable = (
-            int(title_nt.max(initial=0)) > DOC_TERM_CAP
-            or int(body_nt.max(initial=0)) > DOC_TERM_CAP
-        )
-        if doc_sort is None:
-            doc_sort = d_pad >= DOC_SORT_MIN_DOCS and _doc_sort_pays(body_nt)
-        doc_sort = doc_sort and not truncatable and snap.n_docs > 0
-        perm = inv_full = body_tmax = None
-        t_multiple = 8
-        if doc_sort:
-            perm, body_tmax = _doc_sort_perm(body_nt, d_pad)
-            inv = np.empty(d_pad, np.int32)
-            inv[perm] = np.arange(d_pad, dtype=np.int32)
-            inv_full = np.empty(snap.n_docs + 1, np.int32)
-            inv_full[: snap.n_docs] = inv[: snap.n_docs]
-            inv_full[snap.n_docs] = d_pad  # CSR pad doc id -> out-of-range
-            t_multiple = DOC_SORT_TC
+        with TRACER.span("index.sort"):
+            title_nt = section_nt(snap.title)
+            body_nt = section_nt(snap.body)
+            truncatable = (
+                int(title_nt.max(initial=0)) > DOC_TERM_CAP
+                or int(body_nt.max(initial=0)) > DOC_TERM_CAP
+            )
+            if doc_sort is None:
+                doc_sort = d_pad >= DOC_SORT_MIN_DOCS and _doc_sort_pays(body_nt)
+            doc_sort = doc_sort and not truncatable and snap.n_docs > 0
+            perm = inv_full = body_tmax = None
+            t_multiple = 8
+            if doc_sort:
+                perm, body_tmax = _doc_sort_perm(body_nt, d_pad)
+                inv = np.empty(d_pad, np.int32)
+                inv[perm] = np.arange(d_pad, dtype=np.int32)
+                inv_full = np.empty(snap.n_docs + 1, np.int32)
+                inv_full[: snap.n_docs] = inv[: snap.n_docs]
+                inv_full[snap.n_docs] = d_pad  # CSR pad doc id -> out-of-range
+                t_multiple = DOC_SORT_TC
 
         def pad_docs(a: np.ndarray) -> np.ndarray:
             out = np.zeros((d_pad,) + a.shape[1:], dtype=a.dtype)
@@ -457,15 +459,17 @@ class DeviceIndex:
             pr = np.zeros((snap.n_docs, 1), dtype=np.float32)
         posting_cap = _round_up(max(snap.title.max_df, snap.body.max_df, 1))
         pos_cap = _round_up(max(snap.title.max_positions, snap.body.max_positions, 1), 8)
-        title = DeviceSection.from_csr(
-            snap.title, snap.n_docs, d_pad, device, pos_cap=pos_cap,
-            perm=perm, inv_full=inv_full, t_multiple=t_multiple,
-        )
-        body = DeviceSection.from_csr(
-            snap.body, snap.n_docs, d_pad, device, pos_cap=pos_cap,
-            perm=perm, inv_full=inv_full, tmax_blocks=body_tmax,
-            t_multiple=t_multiple,
-        )
+        with TRACER.span("index.title"):
+            title = DeviceSection.from_csr(
+                snap.title, snap.n_docs, d_pad, device, pos_cap=pos_cap,
+                perm=perm, inv_full=inv_full, t_multiple=t_multiple,
+            )
+        with TRACER.span("index.body"):
+            body = DeviceSection.from_csr(
+                snap.body, snap.n_docs, d_pad, device, pos_cap=pos_cap,
+                perm=perm, inv_full=inv_full, tmax_blocks=body_tmax,
+                t_multiple=t_multiple,
+            )
         hot_w = hot_map = None
         if d_pad <= HOT_MAX_DPAD and not (
             title.has_zero_weight
@@ -473,13 +477,14 @@ class DeviceIndex:
             or title.dense_truncated
             or body.dense_truncated
         ):
-            built = _build_hot_cache(
-                snap.body, d_pad,
-                inv_perm=None if inv_full is None else inv_full[: snap.n_docs],
-            )
-            if built is not None:
-                hot_np, hot_map = built
-                hot_w = _put(hot_np, device)
+            with TRACER.span("index.hot"):
+                built = _build_hot_cache(
+                    snap.body, d_pad,
+                    inv_perm=None if inv_full is None else inv_full[: snap.n_docs],
+                )
+                if built is not None:
+                    hot_np, hot_map = built
+                    hot_w = _put(hot_np, device)
         return cls(
             title=title,
             body=body,

@@ -154,6 +154,24 @@ def _to_dev(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _upload(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
+    """A batch's host arrays -> tensors on the ranking device, in one step
+    just before the launch (span engine.upload; counters engine.uploads
+    and engine.upload_bytes). Pageable copies: each returns once the card
+    has taken it, behind the work already queued on the stream."""
+    with TRACER.span("engine.upload"):
+        out = [_to_dev(a, device) for a in arrays]
+    TRACER.count("engine.uploads", len(arrays))
+    TRACER.count("engine.upload_bytes", sum(a.nbytes for a in arrays))
+    return out
+
+
+def _count_batch(lane: str, b: int, q: int, p: int) -> None:
+    """Counters of a dispatched batch: its lane and its (B, Q, P) shape."""
+    TRACER.count(f"engine.lane.{lane}")
+    TRACER.count(f"engine.shape.B{b}.Q{q}.P{p}")
+
+
 class _MultiRankHandle:
     """finish()-compatible concatenation of several chunk handles: batches
     wider than the warmed program set are SPLIT at dispatch instead of
@@ -345,11 +363,82 @@ class QueryEngine:
     ) -> _RankHandle:
         """Dispatch a batch rank and return immediately; the device work and
         the result copy proceed while the host does other work. Call
-        .finish() on the returned handle for the (scores, ids) arrays."""
+        .finish() on the returned handle for the (scores, ids) arrays.
+
+        The host's dispatch runs in TRACER spans: engine.pack (the bucket
+        choice and the batch's host arrays), engine.phrase_match (the sparse
+        phrase lane's matcher), engine.upload and engine.launch."""
         if live is None:
             live = self._live
         snap, idx = live[0], live[1]
         model = live[2] if len(live) > 2 else self.model
+        b_real = len(parsed)
+        # a truncated dense forward view would mis-score (and can drop
+        # candidacy for) docs with >doc_term_cap distinct terms; the CSR is
+        # always complete, so scoring routes through it then
+        use_csr = idx.dense_truncated
+        with TRACER.span("engine.pack"):
+            has_phrase, fused, b_catch, b, q, q_real = self._bucket(parsed, model, idx)
+            packed = None  # the sparse phrase lane packs after its matcher
+            if b_real <= b_catch and (fused or not has_phrase):
+                packed = (self._pack_fused(parsed, snap, idx, model, b, q) if fused
+                          else self._pack_rows(parsed, snap, idx, model, b, q, use_csr))
+        if b_real > b_catch:
+            # wider than any warmed shape: split rather than overflow the
+            # fill buffers
+            return _MultiRankHandle([
+                self.rank_async(parsed[i : i + b_catch], topk, live)
+                for i in range(0, b_real, b_catch)
+            ])
+        if packed is None:
+            # the sparse phrase lane: batched positional intersection on the
+            # device, host-compressed to the real matches so the fold is tiny
+            with TRACER.span("engine.phrase_match"):
+                matches = [(np.zeros(0, np.int32),) * 4 for _ in parsed]
+                ph_rows = [i for i, p in enumerate(parsed) if p.phrase_hashes]
+                batch = self._match_phrases_batch(
+                    [parsed[i].phrase_hashes for i in ph_rows], live
+                )
+                for i, (d, tw, bw, fl) in zip(ph_rows, batch):
+                    real = d < idx.match_pad
+                    matches[i] = (d[real], tw[real], bw[real], fl[real])
+            with TRACER.span("engine.pack"):
+                e_real = max((len(m[0]) for m in matches), default=1)
+                e = next(lvl for lvl in _e_levels(idx.n_docs) if e_real <= lvl)
+                if e > E_BASE:
+                    # wide fold -> the catch-all batch shape; q keeps its own
+                    # bucket (the kernels skip qn=0 blocks, so pad rows are
+                    # near-free)
+                    if q_real > Q_BASE:
+                        q = Q_CATCHALL
+                    if b < WARM_B_MAX:
+                        b = WARM_B_MAX
+                packed = self._pack_rows(parsed, snap, idx, model, b, q, use_csr, (matches, e))
+        host, inv, p_lvl = packed
+        lane = ("fused" if fused else "csr" if use_csr
+                else "sparse_phrase" if has_phrase else "keyword")
+        _count_batch(lane, b, q, p_lvl)
+        dev = _upload(host, idx.device)
+        with TRACER.span("engine.launch"):
+            if fused:
+                t_ids, ql, tp, ph, pv, qn_d, pn_d, *hot = dev
+                scores, ids = model.score_mixed(
+                    idx, t_ids, ql, tp, ph, pv, topk=topk, qn=qn_d, pn=pn_d,
+                    **dict(zip(("qnb", "hot_sids"), hot)),
+                )
+            elif use_csr:
+                scores, ids = model.score_csr(idx, *dev, topk=topk)
+            else:
+                n_rows = 7 if has_phrase else 3  # the scorer's positional arrays
+                rows, (qn_d, *hot) = dev[:n_rows], dev[n_rows:]
+                score = model.score_with_phrase if has_phrase else model.score_keywords
+                scores, ids = score(idx, *rows, topk=topk, qn=qn_d,
+                                    **dict(zip(("qnb", "hot_sids"), hot)))
+            return _RankHandle(scores, ids, inv, b_real)
+
+    def _bucket(self, parsed: list[ParsedQuery], model, idx):
+        """The batch's lane and shape bucket -> (has_phrase, fused, b_catch,
+        b, q, q_real)."""
         b_real = len(parsed)
         has_phrase = any(p.phrase_hashes for p in parsed)
         fused = has_phrase and getattr(model, "supports_mixed", None) is not None \
@@ -361,13 +450,6 @@ class QueryEngine:
             B_BIG if self.big_batch and (fused or not has_phrase)
             else WARM_B_MAX
         )
-        if b_real > b_catch:
-            # wider than any warmed shape: split rather than overflow the
-            # fill buffers
-            return _MultiRankHandle([
-                self.rank_async(parsed[i : i + b_catch], topk, live)
-                for i in range(0, b_real, b_catch)
-            ])
         b = _b_bucket(b_real)
         if (
             self.phrase_b32
@@ -384,50 +466,25 @@ class QueryEngine:
             q = Q_CATCHALL
             if b < b_catch:
                 b = b_catch
-            if q_real > Q_CATCHALL:
+            if q_real > Q_CATCHALL and b_real <= b_catch:
                 import logging
 
                 logging.getLogger("spaghettisearch.engine").warning(
                     "query has %d keyword terms; scoring the first %d",
                     q_real, Q_CATCHALL,
                 )
-        if fused:
-            return self._rank_fused(parsed, topk, live, b, q, q_real, b_real)
-        matches: list[tuple[np.ndarray, ...]] = []
-        e = E_BASE
-        if has_phrase:
-            # the sparse phrase lane: batched positional intersection on the
-            # device, host-compressed to the real matches so the fold is tiny
-            matches = [(np.zeros(0, np.int32),) * 4 for _ in parsed]
-            ph_rows = [i for i, p in enumerate(parsed) if p.phrase_hashes]
-            batch = self._match_phrases_batch(
-                [parsed[i].phrase_hashes for i in ph_rows], live
-            )
-            for i, (d, tw, bw, fl) in zip(ph_rows, batch):
-                real = d < idx.match_pad
-                matches[i] = (d[real], tw[real], bw[real], fl[real])
-            e_real = max((len(m[0]) for m in matches), default=1)
-            e = next(lvl for lvl in _e_levels(idx.n_docs) if e_real <= lvl)
-            if e > E_BASE:
-                # wide fold -> the catch-all batch shape; q keeps its own
-                # bucket (the kernels skip qn=0 blocks, so pad rows are
-                # near-free)
-                if q_real > Q_BASE:
-                    q = Q_CATCHALL
-                if b < WARM_B_MAX:
-                    b = WARM_B_MAX
+        return has_phrase, fused, b_catch, b, q, q_real
 
+    def _pack_rows(self, parsed, snap, idx, model, b: int, q: int, use_csr: bool,
+                   fold=None):
+        """The keyword, sparse phrase and CSR lanes' host arrays, rows in
+        the kernels' order -> (arrays, inverse permutation, phrase level).
+        fold: the sparse lane's (per-row matches, fold width)."""
         hot_map = self._hot_map(model, idx)
         term_ids, qlen, qn, qnb, hot_sids = self._fill_keyword_rows(
             parsed, b, q, snap, hot_map
         )
         topic_probs = self._topic_probs(parsed, b, snap, idx)
-
-        # a truncated dense forward view would mis-score (and can drop
-        # candidacy for) docs with >doc_term_cap distinct terms; the CSR is
-        # always complete, so scoring routes through it then
-        use_csr = idx.dense_truncated
-
         # sort the batch by descending term count: each kernel 8-row block
         # then runs its compare loop only to the block max (results are
         # inverse-permuted back to request order). With the hot-term split
@@ -436,58 +493,38 @@ class QueryEngine:
         perm = np.lexsort((-qn, -qnb))
         inv = np.empty_like(perm)
         inv[perm] = np.arange(b)
-        dev = idx.device
-        hot_kw = (
-            {"qnb": _to_dev(qnb[perm], dev), "hot_sids": _to_dev(hot_sids[perm], dev)}
-            if hot_map is not None
-            else {}
-        )
-        rows = (_to_dev(term_ids[perm], dev), _to_dev(qlen[perm], dev),
-                _to_dev(topic_probs[perm], dev))
-        if not has_phrase:
-            with TRACER.span("rank.device"):
-                if use_csr:
-                    scores, ids = model.score_csr(idx, *rows, topk=topk)
-                else:
-                    scores, ids = model.score_keywords(
-                        idx, *rows, topk=topk, qn=_to_dev(qn[perm], dev), **hot_kw,
-                    )
-                return _RankHandle(scores, ids, inv, b_real)
+        host = [term_ids[perm], qlen[perm], topic_probs[perm]]
+        p_lvl = 0
+        if fold is not None:
+            matches, e = fold
+            # the fold's pad doc lands past the real doc range and is dropped
+            # (the doc-sorted layout never routes through use_csr:
+            # DeviceIndex gates doc_sort on truncation)
+            pad_doc = idx.n_docs if use_csr else idx.n_docs_padded
+            ph_docs = np.full((b, e), pad_doc, dtype=np.int32)
+            ph_tw = np.zeros((b, e), dtype=np.float32)
+            ph_bw = np.zeros((b, e), dtype=np.float32)
+            ph_fl = np.zeros((b, e), dtype=np.float32)
+            for i, (d, tw, bw, fl) in enumerate(matches):
+                n = len(d)
+                ph_docs[i, :n], ph_tw[i, :n] = d, tw
+                ph_bw[i, :n], ph_fl[i, :n] = bw, fl
+            # matches were filled in request order; apply the row sort
+            host += [a[perm] for a in (ph_docs, ph_tw, ph_bw, ph_fl)]
+            p_lvl = _p_level(max(len(p.phrase_hashes) for p in parsed))
+        if not use_csr:
+            host.append(qn[perm])
+            if hot_map is not None:
+                host += [qnb[perm], hot_sids[perm]]
+        return host, inv, p_lvl
 
-        # the fold's pad doc lands past the real doc range and is dropped
-        # (the doc-sorted layout never routes through use_csr: DeviceIndex
-        # gates doc_sort on truncation)
-        pad_doc = idx.n_docs if use_csr else idx.n_docs_padded
-        ph_docs = np.full((b, e), pad_doc, dtype=np.int32)
-        ph_tw = np.zeros((b, e), dtype=np.float32)
-        ph_bw = np.zeros((b, e), dtype=np.float32)
-        ph_fl = np.zeros((b, e), dtype=np.float32)
-        for i, (d, tw, bw, fl) in enumerate(matches):
-            n = len(d)
-            ph_docs[i, :n], ph_tw[i, :n] = d, tw
-            ph_bw[i, :n], ph_fl[i, :n] = bw, fl
-        # matches were filled in request order; apply the row sort
-        fold = tuple(_to_dev(a[perm], dev) for a in (ph_docs, ph_tw, ph_bw, ph_fl))
-        with TRACER.span("rank.device"):
-            if use_csr:
-                scores, ids = model.score_csr(idx, *rows, *fold, topk=topk)
-            else:
-                scores, ids = model.score_with_phrase(
-                    idx, *rows, *fold, topk=topk, qn=_to_dev(qn[perm], dev), **hot_kw,
-                )
-            return _RankHandle(scores, ids, inv, b_real)
-
-    def _rank_fused(
-        self, parsed: list[ParsedQuery], topk: int, live, b: int, q: int,
-        q_real: int, b_real: int,
-    ) -> _RankHandle:
-        """Fused mixed lane: keyword scoring + dense in-kernel phrase
-        matching + fold + finalize + top-k, one mixed-kernel pass per batch.
-        The phrase width is ONE static P_LEVELS[-1]: the kernel's phrase
-        loops are bounded per 8-row block by the real max term count, so a
-        wide pad column costs nothing."""
-        snap, idx = live[0], live[1]
-        model = live[2] if len(live) > 2 else self.model
+    def _pack_fused(self, parsed, snap, idx, model, b: int, q: int):
+        """Fused mixed lane (keyword scoring + dense in-kernel phrase
+        matching + fold + finalize + top-k, one mixed-kernel pass per
+        batch): its host arrays -> (arrays, inverse permutation, phrase
+        level). The phrase width is ONE static P_LEVELS[-1]: the kernel's
+        phrase loops are bounded per 8-row block by the real max term count,
+        so a wide pad column costs nothing."""
         p_real = max((len(p.phrase_hashes) for p in parsed), default=0)
         p_lvl = P_LEVELS[-1]
         if p_real > p_lvl:
@@ -496,7 +533,6 @@ class QueryEngine:
             logging.getLogger("spaghettisearch.engine").warning(
                 "phrase has %d terms; matching the first %d", p_real, p_lvl
             )
-
         hot_map = self._hot_map(model, idx)
         term_ids, qlen, qn, qnb, hot_sids = self._fill_keyword_rows(
             parsed, b, q, snap, hot_map
@@ -510,7 +546,6 @@ class QueryEngine:
             ph_valid[i, : len(pids)] = 1.0
             pn[i] = len(pids)
         topic_probs = self._topic_probs(parsed, b, snap, idx)
-
         # sort phrase rows first (descending pn), then by cold-term count
         # (the body sweep's bound under the hot split), then total keywords:
         # phrase-free row tiles skip the kernel's phrase stage, keyword
@@ -518,22 +553,10 @@ class QueryEngine:
         perm = np.lexsort((-qn, -qnb, -pn))
         inv = np.empty_like(perm)
         inv[perm] = np.arange(b)
-        dev = idx.device
-        hot_kw = (
-            {"qnb": _to_dev(qnb[perm], dev), "hot_sids": _to_dev(hot_sids[perm], dev)}
-            if hot_map is not None
-            else {}
-        )
-        with TRACER.span("rank.device"):
-            scores, ids = model.score_mixed(
-                idx,
-                _to_dev(term_ids[perm], dev), _to_dev(qlen[perm], dev),
-                _to_dev(topic_probs[perm], dev),
-                _to_dev(ph_ids[perm], dev), _to_dev(ph_valid[perm], dev),
-                topk=topk, qn=_to_dev(qn[perm], dev), pn=_to_dev(pn[perm], dev),
-                **hot_kw,
-            )
-            return _RankHandle(scores, ids, inv, b_real)
+        host = [a[perm] for a in (term_ids, qlen, topic_probs, ph_ids, ph_valid, qn, pn)]
+        if hot_map is not None:
+            host += [qnb[perm], hot_sids[perm]]
+        return host, inv, p_lvl
 
     def _topic_probs(self, parsed, b, snap, idx) -> np.ndarray:
         topic_probs = np.zeros((b, idx.n_categories), dtype=np.float32)
@@ -654,7 +677,7 @@ class QueryEngine:
                 idx.title.pos_offsets, idx.title.positions,
                 idx.body.offsets, idx.body.doc_ids, b_w,
                 idx.body.pos_offsets, idx.body.positions,
-                _to_dev(ids_all, dev), _to_dev(valid_all, dev), _to_dev(gens_all, dev),
+                *_upload([ids_all, valid_all, gens_all], dev),
                 posting_cap=idx.posting_cap, pos_cap=idx.pos_cap, n_docs=idx.n_docs,
             )
             return self._fetch_matches([(np.arange(n_sets), res)], n_sets, idx.n_docs)
@@ -675,8 +698,7 @@ class QueryEngine:
                     idx.body.pos_offsets, idx.body.positions,
                     idx.title.offsets, idx.title.doc_ids,
                     idx.body.offsets, idx.body.doc_ids,
-                    _to_dev(ids_all[chunk], dev), _to_dev(valid_all[chunk], dev),
-                    _to_dev(gens_all[chunk], dev),
+                    *_upload([ids_all[chunk], valid_all[chunk], gens_all[chunk]], dev),
                     idx.title.pos_mat, idx.body.pos_mat,
                     posting_cap=cap, pos_cap=idx.pos_cap, n_docs=idx.match_pad,
                 )

@@ -347,7 +347,7 @@ class ShardedQueryEngine(QueryEngine):
     def _rank_fused(
         self, parsed: list[ParsedQuery], topk: int, live, b: int
     ) -> _ShardedRankHandle:
-        """The fused mixed lane on the mesh (cf. QueryEngine._rank_fused):
+        """The fused mixed lane on the mesh (cf. QueryEngine._pack_fused):
         per shard one K2 pass scores keywords and matches phrases per batch
         ROW; one phrase width, P_LEVELS[-1]."""
         snap, facts = live

@@ -168,10 +168,108 @@ def test_port_source_never_imports_jax():
                 assert n.split(".")[0] not in _FORBIDDEN, (path, n)
 
 
+#: the port's Tracer: the original's span aggregator, whose spans and ranges
+#: are also torch.profiler ranges while a profiler records, plus counters
+_TRACER_ORIG = '''@dataclass
+class Tracer:
+    """Thread-safe span aggregator."""
+
+    stats: dict[str, SpanStats] = field(default_factory=lambda: defaultdict(SpanStats))
+    _lock: threading.Lock = field(default_factory=threading.Lock)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.stats[name].add(dt)
+
+    def report(self) -> dict[str, dict[str, float]]:
+        with self._lock:
+            return {
+                name: {
+                    "count": s.count,
+                    "total_s": round(s.total_s, 6),
+                    "mean_ms": round(1e3 * s.total_s / max(s.count, 1), 3),
+                    "max_ms": round(1e3 * s.max_s, 3),
+                }
+                for name, s in sorted(self.stats.items())
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self.stats.clear()
+'''
+_TRACER_PORT = '''#: what Tracer.range returns while no profiler records (shared, reusable)
+_NO_RANGE = contextlib.nullcontext()
+
+
+@dataclass
+class Tracer:
+    """Thread-safe span aggregator and counters. While a torch.profiler
+    records, every span and range is also a range on the profiler's host
+    timeline, on the clock of its device activities, so the device work a
+    block launched can be credited to it."""
+
+    stats: dict[str, SpanStats] = field(default_factory=lambda: defaultdict(SpanStats))
+    counters: dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    _lock: threading.Lock = field(default_factory=threading.Lock)
+
+    @staticmethod
+    def range(name: str):
+        """A profiler range around a block while a profiler records, else a
+        no-op; nothing is aggregated (for device stages, whose host time is
+        an asynchronous launch). The range has the scope of an operator,
+        not of a user annotation, so the profiler makes no copy of it on
+        the device's timeline: the device timeline holds only the work."""
+        if _autograd_profiler._is_profiler_enabled:
+            return _RecordFunctionFast(name)
+        return _NO_RANGE
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            with self.range(name):
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.stats[name].add(dt)
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.counters[name] += n
+
+    def report(self) -> dict[str, dict[str, float]]:
+        """Spans (count, total_s, mean_ms, max_ms), then counters (count)."""
+        with self._lock:
+            out = {
+                name: {
+                    "count": s.count,
+                    "total_s": round(s.total_s, 6),
+                    "mean_ms": round(1e3 * s.total_s / max(s.count, 1), 3),
+                    "max_ms": round(1e3 * s.max_s, 3),
+                }
+                for name, s in sorted(self.stats.items())
+            }
+            out.update((name, {"count": c}) for name, c in sorted(self.counters.items()))
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self.stats.clear()
+            self.counters.clear()
+'''
+
 #: host modules carried over verbatim: only import lines may differ, plus
 #: the listed substitutions (original, copy): comment wording that names the
-#: original's own workspace, and the body of the device-trace hook
-#: (jax.profiler in the original, torch.profiler in the port)
+#: original's own workspace, the body of the device-trace hook
+#: (jax.profiler in the original, torch.profiler in the port), and the
+#: port's Tracer
 COPIES = {
     "config.py": (),
     "store/__init__.py": (),
@@ -212,6 +310,11 @@ COPIES = {
          '    with profile(activities=activities) as prof:\n'
          '        yield\n'
          '    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))\n'),
+        ("from dataclasses import dataclass, field\n",
+         "from dataclasses import dataclass, field\n\n"
+         "from torch._C._profiler import _RecordFunctionFast\n"
+         "from torch.autograd import profiler as _autograd_profiler\n"),
+        (_TRACER_ORIG, _TRACER_PORT),
     ),
     "index/snapshot.py": (),
     "index/persist.py": (),
