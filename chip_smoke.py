@@ -5,9 +5,9 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: name, count, `nvidia-smi` name and power limit;
-  2. build: `make -C native` and the five CUDA sources of csrc/
+  2. build: `make -C native` and the six CUDA sources of csrc/
      (membership.cu: K1 + K3, mixed.cu: K2, fused.cu: K4, fused_topk.cu:
-     K5, phrase_delta.cu: K6), all at once (nvcc for sm_90a; ptxas
+     K5, phrase_delta.cu: K6, finalize.cu: the rank's finalize), all at once (nvcc for sm_90a; ptxas
      registers / shared memory / spills printed);
   3. corpus: the seeded benchmark corpus built by the port's bench
      (bench.py build_bench_corpus, in a process of its own: corpus.py's
@@ -43,7 +43,10 @@ Phases (any failure raises and the script exits non-zero):
      timed beside its static call (held in phase 17); per B=128
      batch, score_queries_fused vs
      the production keyword scorer, and one custom-blend rank (two K3
-     calls, phrase fold, finalize, top-k);
+     calls, phrase fold, finalize, top-k); the finalize kernel at B=128
+     over the index's width, four input variants bit for bit against its
+     plain route, the engine's own variant timed beside its bound
+     (check.finalize_bound_ms);
   5. serving: the port's SearchServer (micro-batching on) after warmup()
      answers POST /query, GET /query/{terms} and GET /wordlist/{prefix}
      from several client threads; every response must be 200 JSON, the
@@ -285,21 +288,22 @@ def count_matcher_calls():
 
 def reset_launches() -> None:
     from spaghettisearch_tpu_torch.ops.kernels import (
-        fused, fused_topk, membership, mixed, phrase_delta,
+        finalize, fused, fused_topk, membership, mixed, phrase_delta,
     )
 
-    for mod in (membership, mixed, fused, fused_topk, phrase_delta):
+    for mod in (membership, mixed, fused, fused_topk, phrase_delta, finalize):
         mod.reset_launches()
 
 
 def launches() -> dict:
     from spaghettisearch_tpu_torch.ops.kernels import (
-        fused, fused_topk, membership, mixed, phrase_delta,
+        finalize, fused, fused_topk, membership, mixed, phrase_delta,
     )
 
     return {"membership": membership.LAUNCHES, "mixed": mixed.LAUNCHES,
             "membership_1sec": membership.LAUNCHES_1SEC, "fused": fused.LAUNCHES,
-            "fused_topk": fused_topk.LAUNCHES, "phrase_delta": phrase_delta.LAUNCHES}
+            "fused_topk": fused_topk.LAUNCHES, "phrase_delta": phrase_delta.LAUNCHES,
+            "finalize": finalize.LAUNCHES}
 
 
 def same_results(got: list[dict], want: list[dict], rtol: float = 1e-6) -> bool:
@@ -579,15 +583,15 @@ def pagerank_bound_ms(n: int, e: int, c: int, n_vectors: int) -> float:
 def build_all() -> list:
     """`make -C native` and one nvcc per CUDA source, all started together."""
     from spaghettisearch_tpu_torch.ops.kernels import (
-        fused, fused_topk, membership, mixed, phrase_delta,
+        finalize, fused, fused_topk, membership, mixed, phrase_delta,
     )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as ex:
+    with ThreadPoolExecutor(7) as ex:
         native = ex.submit(subprocess.run, ["make", "-C", os.path.join(HERE, "native"), "-s"],
                            check=True)
         libs = [ex.submit(mod.library)
-                for mod in (membership, mixed, fused, fused_topk, phrase_delta)]
+                for mod in (membership, mixed, fused, fused_topk, phrase_delta, finalize)]
         native.result()
         built = [f.result() for f in libs]
     say(f"# native libraries and kernels built in {time.perf_counter() - t0:.1f}s")
@@ -2026,7 +2030,7 @@ def main() -> int:
     t0 = time.perf_counter()
     df = snap.body.df(range(snap.n_words)).astype("float64")
     records = {"membership": [], "mixed": [], "membership_1sec": [], "fused": [],
-               "fused_topk": [], "phrase_delta": [], "mixed_tmax": []}
+               "fused_topk": [], "phrase_delta": [], "mixed_tmax": [], "finalize": []}
     main_counts = idx.has_zero_weight  # the engine's emit_counts
     doc_sort = idx.body.tmax_blocks is not None
     idx32 = dataclasses.replace(idx, **{  # the f32 planes a pathological corpus keeps
@@ -2200,6 +2204,22 @@ def main() -> int:
     # the kernels line: the custom-blend route's K3 variant, K4 topics off
     times["membership_1sec"] = variants["K3 body counts=True"]
     times["fused"] = variants["K4 C=1"]
+    # the finalize kernel at the index's width: every variant held bit for
+    # bit, the engine's own (hot split, counts as the index needs) timed
+    d_fin = idx.n_docs_padded
+    for hot, counts, phrase in ((True, False, False), (True, True, False), (False, True, True),
+                                (False, False, True)):
+        case = check.finalize_case(128, d_fin, seed=3, hot=hot, counts=counts, phrase=phrase,
+                                   device="cuda")
+        held("finalize", check.compare_finalize(check.run_finalize(case),
+                                                check.run_finalize(case, plain=True)),
+             f"finalize B=128 D={d_fin} hot={hot} counts={counts} phrase={phrase}")
+    fin_case = check.finalize_case(128, d_fin, seed=4, hot=True, counts=main_counts,
+                                   device="cuda")
+    times["finalize"] = (
+        check.time_ms(lambda: check.run_finalize(fin_case)),
+        check.time_ms(lambda: check.run_finalize(fin_case, plain=True), iters=5),
+    )
     for kname, (ms, plain_ms) in times.items():
         say(f"# {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per B=128 call ({smi})")
     say(f"# mixed B=16 Q=4 P=4 (the serving shape): kernel {k2_b16[0]:.4f} ms, plain "
@@ -2217,6 +2237,7 @@ def main() -> int:
         "fused": None,  # no single call: membership, cosine normalisation and blend in one
         "fused_topk": None,  # no single call: membership, normalisation and a top-k in one
         "phrase_delta": None,  # no single call: phrase chains over position planes
+        "finalize": None,  # no single call: the hot add, candidacy, cosine, blend and chunk max
     }
     secs = ("title", "body")
     n_k = 4 if main_counts else 2
@@ -2236,6 +2257,9 @@ def main() -> int:
         "phrase_delta": bound_ms(idx, sweeps(phrase_rows(mbatch, BP_DELTA, snap.n_words),
                                              phrases=True), BP_DELTA, 2),
     }
+    # the finalize kernel: its [B, D] streams read once, final and cmax written once
+    bounds["finalize"] = (check.finalize_bound_ms(128, d_fin, hot=True, counts=main_counts),
+                          "bytes")
     k2_b16_bound = bound_ms(idx, sweeps(mbatch16, phrases=True), 16, n_k)
     say(f"# bounds (ms, what sets them; 4 B per real slot, 4 B per slot a row asks for, "
         f"each output once, over 3.35 TB/s): {bounds}; mixed B=16 {k2_b16_bound}")
@@ -2385,7 +2409,10 @@ def main() -> int:
     finally:
         BlendedRanker.score_csr = score_csr
     phase_launches["csr"] = launches()
-    if csr_calls[0] < 2 or matcher[0] == 0 or any(phase_launches["csr"].values()):
+    # no membership kernel on this route; its finalize takes the kernel once a call
+    membership = {k: n for k, n in phase_launches["csr"].items() if k != "finalize"}
+    if (csr_calls[0] < 2 or matcher[0] == 0 or any(membership.values())
+            or phase_launches["csr"]["finalize"] != csr_calls[0]):
         raise RuntimeError(f"CSR route: score_csr calls {csr_calls[0]}, matcher calls "
                            f"{matcher[0]}, launches {phase_launches['csr']}")
     with plain_kernels():
@@ -2585,6 +2612,8 @@ def main() -> int:
          "probe_phrase_delta"),
         ("mixed_tmax", "mixed.cu", "spaghettisearch_tpu/ops/kernels/mixed.py:514",
          "probe_mixed_tbound"),
+        ("finalize", "finalize.cu", "none: XLA fuses spaghettisearch_tpu/ops/scoring.py:122",
+         "serving"),
     ):
         n = phase_launches[path][kname.removesuffix("_shard")]
         if n == 0:

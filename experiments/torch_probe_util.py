@@ -194,11 +194,11 @@ def reset_launches() -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the scorers through the kernels' plain versions (the on-card
-    reference of an exactness check): K1, K2, K3 and K4."""
-    from spaghettisearch_tpu_torch.ops.kernels import fused, membership, mixed
+    reference of an exactness check): K1, K2, K3, K4 and the finalize."""
+    from spaghettisearch_tpu_torch.ops.kernels import finalize, fused, membership, mixed
 
     saved = (membership.forward_scores_2sec, membership.forward_scores,
-             mixed.mixed_scores_2sec, fused.fused_final_scores)
+             mixed.mixed_scores_2sec, fused.fused_final_scores, finalize.finalize_chunked)
 
     def k2_plain(t_ftT, t_fwT, b_ftT, b_fwT, t_pos, b_pos, term_ids, qn, ph_ids,
                  ph_valid, pn, *, emit_counts=True, qnb=None, body_tmax=None,
@@ -216,11 +216,12 @@ def plain_kernels():
     membership.forward_scores = k3_plain
     mixed.mixed_scores_2sec = k2_plain
     fused.fused_final_scores = fused.plain_fused_final_scores
+    finalize.finalize_chunked = finalize.plain_finalize_chunked
     try:
         yield
     finally:
         (membership.forward_scores_2sec, membership.forward_scores,
-         mixed.mixed_scores_2sec, fused.fused_final_scores) = saved
+         mixed.mixed_scores_2sec, fused.fused_final_scores, finalize.finalize_chunked) = saved
 
 
 @functools.lru_cache(maxsize=None)

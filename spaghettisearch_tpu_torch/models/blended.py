@@ -18,6 +18,7 @@ import torch
 from ..config import MAX_RESULTS, SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
 from ..ops import scoring as _scoring
+from ..ops.kernels import finalize as _fin
 from ..ops.kernels import membership as _k1
 from ..utils.timing import TRACER
 
@@ -178,15 +179,13 @@ def _custom_score(
 ):
     """A custom blend's ranking: each section through kernel K3 (with
     counts) over the full term tile (no hot fold: custom blends never take
-    the hot split), the phrase fold, then the weighted finalize and exact
-    top-k."""
+    the hot split), then the phrase fold's add, the weighted finalize
+    (kernels/finalize.py) and the exact top-k."""
     with TRACER.range("scoring.kernel"):
         ts, tc = _k1.forward_scores(title_fwd.ftT, title_fwd.fwT, term_ids, qn)
         bs, bc = _k1.forward_scores(body_fwd.ftT, body_fwd.fwT, term_ids, qn)
     pacc = _scoring.phrase_fold(ts.shape[1], ph_docs, ph_tw, ph_bw, ph_fl)
-    with TRACER.range("scoring.fold"):
-        ts, tc, bs = ts + pacc[:, :, 0], tc + pacc[:, :, 2], bs + pacc[:, :, 1]
-    final = _scoring.finalize_scores(
-        ts, tc, bs, bc, mag_t, mag_b, pagerank, qlen, topic_probs, weights,
+    final, cmax = _fin.finalize_chunked(
+        ts, tc, bs, bc, mag_t, mag_b, pagerank, qlen, topic_probs, weights, phrase=pacc,
     )
-    return _scoring.exact_top_k(final, topk, doc_map=doc_map)
+    return _scoring.exact_top_k(final, topk, doc_map=doc_map, cmax=cmax)

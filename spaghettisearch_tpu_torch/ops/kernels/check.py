@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import finalize as fin
 from . import fused as k4
 from . import fused_topk as k5
 from . import membership as k1
@@ -338,6 +339,97 @@ def run_k2(index, batch: dict, emit_counts: bool, plain: bool = False,
         *args, batch["qn"], batch["ph_ids"], batch["ph_valid"], batch["pn"],
         emit_counts=emit_counts, qnb=qnb, **bound,
     )
+
+
+def finalize_case(b: int, d: int, seed: int, *, hot: bool = True, counts: bool = False,
+                  phrase: bool = False, c: int = 1, weights=None, device="cpu") -> dict:
+    """Seeded inputs of the finalize kernel (finalize.finalize_chunked's
+    arguments) at [b, d]: sparse non-negative scores (a hit in ~1 of 8
+    docs), integer counts with zero-weight hits, the hot GEMM's output as a
+    [b, d + 64] buffer read in place, a phrase fold as the [b, d, 3] view
+    of a [b, d + 1, 3] accumulator (as scoring.phrase_fold leaves it),
+    magnitudes with zeros under both zero and positive scores (0/0 -> 0,
+    +inf), C topic categories, and every fifth row with no hit at all."""
+    rng = np.random.default_rng(seed)
+
+    def sparse(shape, p):
+        return (rng.random(shape) < p) * rng.uniform(0.01, 2.0, shape)
+
+    ts, bs = sparse((b, d), 0.12), sparse((b, d), 0.12)
+    ts[::5] = 0.0
+    bs[::5] = 0.0
+    args = {"ts": ts, "bs": bs, "tc": None, "bc": None, "hot": None, "phrase": None}
+    if counts:  # a count per hit, and hits of zero weight
+        args["tc"] = (ts > 0) * rng.integers(1, 3, (b, d)) + (rng.random((b, d)) < 0.01)
+        args["bc"] = (bs > 0) * rng.integers(1, 3, (b, d))
+        args["tc"][::5] = 0
+    if hot:
+        args["hot"] = sparse((b, d + 64), 0.05)
+    if phrase:
+        acc = np.zeros((b, d + 1, 3))
+        hit = rng.random((b, d)) < 0.01
+        acc[:, :d, 0] = hit * rng.uniform(0.0, 1.0, (b, d))
+        acc[:, :d, 1] = hit * rng.uniform(0.0, 1.0, (b, d))
+        acc[:, :d, 2] = hit
+        args["phrase"] = acc
+    mag_t, mag_b = rng.uniform(0.5, 4.0, d), rng.uniform(0.5, 4.0, d)
+    mag_t[rng.random(d) < 0.02] = 0.0
+    mag_b[rng.random(d) < 0.02] = 0.0
+    out = {k: None if v is None else torch.from_numpy(np.asarray(v, np.float32)).to(device)
+           for k, v in args.items()}
+    if phrase:
+        out["phrase"] = out["phrase"][:, :d]
+    out.update(
+        mag_title=torch.from_numpy(mag_t.astype(np.float32)).to(device),
+        mag_body=torch.from_numpy(mag_b.astype(np.float32)).to(device),
+        pagerank=torch.from_numpy(rng.uniform(0, 1e-3, (d, c)).astype(np.float32)).to(device),
+        query_len=torch.from_numpy(rng.integers(1, 9, b).astype(np.float32)).to(device),
+        topic_probs=torch.from_numpy(
+            rng.dirichlet(np.ones(c), b).astype(np.float32) if c else np.zeros((b, 0), np.float32)
+        ).to(device),
+    )
+    if weights is not None:
+        out["weights"] = weights
+    return out
+
+
+def run_finalize(case: dict, plain: bool = False):
+    """The finalize wrapper (or its plain version) on a finalize_case()
+    -> (final [B, D], cmax [B, M])."""
+    fn = fin.plain_finalize_chunked if plain else fin.finalize_chunked
+    a = dict(case)
+    pos = [a.pop(k) for k in ("ts", "tc", "bs", "bc", "mag_title", "mag_body", "pagerank",
+                              "query_len", "topic_probs")]
+    if "weights" in a:
+        pos.append(a.pop("weights"))
+    return fn(*pos, **a)
+
+
+def finalize_bound_ms(b: int, d: int, *, hot: bool = True, counts: bool = False,
+                      phrase: bool = False, c: int = 1) -> float:
+    """The least time of a finalize call: ts, bs, the hot GEMM's output,
+    the counts and the phrase fold's three channels where present, each a
+    [b, D] f32 read once; `final` [b, M*128] and cmax [b, M] written once;
+    mag_title, mag_body and pagerank [D, C] read once; over 3.35 TB/s (no
+    operation count: a few flops a byte)."""
+    m = -(-d // fin.CHUNK)
+    streams = 2 + hot + 2 * counts + 3 * phrase
+    nbytes = 4 * (streams * b * d + b * m * fin.CHUNK + b * m + (2 + c) * d)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def compare_finalize(got, want, exact: bool = True) -> dict:
+    """finalize outputs (final, cmax) against the plain version's: bit for
+    bit (exact), or compare_final's RTOL on both where sqd sums C > 1
+    categories in another order. -> {"ok", "final", "cmax", "max_abs_err"}."""
+    reps = [compare_final(g, w) for g, w in zip(got, want)]
+    if exact:
+        same = [bool(torch.equal(g.contiguous().view(torch.int32), w.contiguous().view(torch.int32)))
+                for g, w in zip(got, want)]
+        return {"ok": all(same), "final": same[0], "cmax": same[1],
+                "max_abs_err": reps[0]["max_abs_err"]}
+    return {"ok": all(r["ok"] for r in reps), "final": reps[0], "cmax": reps[1],
+            "max_abs_err": reps[0]["max_abs_err"]}
 
 
 def topk_case(index, b: int, seed: int, df=None, copies: int = 20) -> tuple:

@@ -2,7 +2,10 @@
 
 The counterpart of spaghettisearch_tpu/ops/scoring.py. Three formulations
 share one finalization (cosine normalize -> PageRank blend -> candidate
-mask -> exact top-k):
+mask -> exact top-k), which runs with the hot fold's add, the candidacy
+and the top-k's chunk maxima as one kernel on the card
+(kernels/finalize.py finalize_chunked; finalize_scores is its plain
+version's core):
 
 1. forward membership: keyword batches (kernel K1), with the sparse phrase
    fold (score_queries_forward_phrase), and the fused mixed lane (kernel
@@ -33,16 +36,15 @@ from __future__ import annotations
 
 import torch
 
-from ..config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 from ..utils.timing import TRACER
 
+from .kernels import finalize as _fin
 from .kernels import fused as _k4
 from .kernels import membership as _k1
 from .kernels import mixed as _k2
+from .kernels.finalize import REFERENCE_BLEND
 
 _INT32_MAX = torch.iinfo(torch.int32).max
-#: (w_pagerank, w_title, w_body, scale) of the reference formula
-REFERENCE_BLEND = (W_PAGERANK, W_TITLE, W_BODY, SCORE_SCALE)
 
 
 def set_exact_matmul() -> None:
@@ -84,7 +86,7 @@ def _sort_score_desc_id_asc(
 
 def exact_top_k(
     scores: torch.Tensor, k: int, chunk: int = 128, chunk_min_docs: int = 1 << 18,
-    doc_map: torch.Tensor | None = None,
+    doc_map: torch.Tensor | None = None, cmax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the doc axis -> (values [B, k], ids int32 [B, k]).
 
@@ -92,20 +94,30 @@ def exact_top_k(
     the JAX package: per-128-doc-chunk max, top-k over the chunk maxima,
     gather the k winning chunks, exact top-k over the candidates. Value-
     exact: every element above the k-th value lives in a chunk whose max
-    is above it, and at most k chunks can have such a max. With doc_map
-    (doc-sorted layout) the ids are mapped back to natural ids and the
-    order is normalized to (score desc, natural id asc)."""
+    is above it, and at most k chunks can have such a max. cmax [B, M]
+    (kernels/finalize.py) gives the chunk maxima ready-made: scores is
+    then the first D columns of a [B, M*chunk] buffer padded with -inf,
+    whose chunks the route gathers in place. With doc_map (doc-sorted
+    layout) the ids are mapped back to natural ids and the order is
+    normalized to (score desc, natural id asc)."""
     with TRACER.range("scoring.topk"):
         b, d = scores.shape
         k = min(k, d)
         if d < chunk_min_docs or d < 2 * chunk * k:
             tv, tid = _top_k_lowest_index(scores, k)
         else:
-            pad = (-d) % chunk
-            xp = torch.nn.functional.pad(scores, (0, pad), value=-float("inf")) if pad else scores
-            m = xp.shape[1] // chunk
-            ch = xp.view(b, m, chunk)
-            cmax = ch.amax(dim=2)  # [B, M]
+            m = -(-d // chunk)
+            if cmax is None:
+                pad = m * chunk - d
+                xp = torch.nn.functional.pad(scores, (0, pad), value=-float("inf")) if pad else scores
+                ch = xp.view(b, m, chunk)
+                cmax = ch.amax(dim=2)  # [B, M]
+            else:
+                rs = scores.stride(0)
+                if cmax.shape != (b, m) or scores.stride(1) != 1 or rs < m * chunk:
+                    raise ValueError(f"cmax {tuple(cmax.shape)} does not fit scores "
+                                     f"{tuple(scores.shape)} in chunks of {chunk}")
+                ch = scores.as_strided((b, m, chunk), (rs, chunk, 1))
             _, ci = _top_k_lowest_index(cmax, k)  # winning chunk ids
             cand = torch.gather(ch, 1, ci[:, :, None].expand(b, k, chunk)).reshape(b, k * chunk)
             tv, tp = _top_k_lowest_index(cand, k)
@@ -179,26 +191,13 @@ def hot_body_scores(hot_w: torch.Tensor, hot_sids: torch.Tensor) -> torch.Tensor
     return onehot @ hot_w
 
 
-def _fold_hot(bs, bc, hot_w, hot_sids):
-    if hot_w is not None and hot_sids is not None:
-        with TRACER.range("scoring.hot"):
-            hot = hot_body_scores(hot_w, hot_sids)[:, : bs.shape[1]]
-            bs = bs + hot
-            if bc is not None:  # true-count path: hot candidacy must count too
-                bc = bc + (hot > 0).to(bs.dtype)
-    return bs, bc
-
-
-def _candidates(ts, bs, phrase_flag=None):
-    """The candidacy stand-in when the kernel elides its counts (every
-    weight > 0): a doc is a candidate iff its score (or a phrase match)
-    is > 0. -> (title count, body count)."""
-    with TRACER.range("scoring.counts"):
-        cand = ts + bs > 0
-        if phrase_flag is not None:
-            cand = cand | (phrase_flag > 0)
-        tc = cand.to(ts.dtype)
-        return tc, torch.zeros_like(tc)
+def _hot(hot_w, hot_sids):
+    """The hot fold's matmul [B, H] @ [H, D'] (finalize adds it to the body
+    scores and counts a hot-only doc as a candidate), or None."""
+    if hot_w is None or hot_sids is None:
+        return None
+    with TRACER.range("scoring.hot"):
+        return hot_body_scores(hot_w, hot_sids)
 
 
 def score_queries_fused(
@@ -265,13 +264,11 @@ def score_queries_forward(
             title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
             emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
         )
-    bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
-    if tc is None:  # counts elided: all weights > 0, candidacy <=> score > 0
-        tc, bc = _candidates(ts, bs)
-    final = finalize_scores(
-        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
+    final, cmax = _fin.finalize_chunked(
+        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs,
+        hot=_hot(hot_w, hot_sids),
     )
-    return exact_top_k(final, topk, doc_map=doc_map)
+    return exact_top_k(final, topk, doc_map=doc_map, cmax=cmax)
 
 
 def score_queries_mixed(
@@ -299,8 +296,8 @@ def score_queries_mixed(
     phrase matching + fold + finalize + top-k. body_tmax (doc-sorted
     layout) bounds the kernel's body loops that tmax_stage picks
     (kernels/mixed.py); the plain version ignores it (result-identical)."""
-    # derive candidacy AFTER the hot fold: a doc matched only by a hot body
-    # term must still become a candidate
+    # candidacy comes AFTER the hot fold (inside finalize): a doc matched
+    # only by a hot body term must still become a candidate
     with TRACER.range("scoring.kernel"):
         if pn is None:
             pn = ph_valid.sum(dim=1).to(torch.int32)
@@ -310,13 +307,11 @@ def score_queries_mixed(
             emit_counts=emit_counts, qnb=qnb, derive=False, body_tmax=body_tmax,
             tmax_stage=tmax_stage,
         )
-    bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
-    with TRACER.range("scoring.counts"):
-        ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)
-    final = finalize_scores(
-        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
+    final, cmax = _fin.finalize_chunked(
+        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs,
+        hot=_hot(hot_w, hot_sids),
     )
-    return exact_top_k(final, topk, doc_map=doc_map)
+    return exact_top_k(final, topk, doc_map=doc_map, cmax=cmax)
 
 
 def score_queries_forward_phrase(
@@ -348,20 +343,13 @@ def score_queries_forward_phrase(
             title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
             emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
         )
-    bs, bc = _fold_hot(bs, bc, hot_w, hot_sids)
+    hot = _hot(hot_w, hot_sids)
     pacc = phrase_fold(n_docs, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag)
-    if tc is None:  # counts elided: candidacy from scores + phrase flags
-        tc, bc = _candidates(ts, bs, pacc[:, :, 2])
-    else:
-        with TRACER.range("scoring.counts"):
-            tc = tc + pacc[:, :, 2]
-    with TRACER.range("scoring.fold"):
-        ts = ts + pacc[:, :, 0]
-        bs = bs + pacc[:, :, 1]
-    final = finalize_scores(
-        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs
+    final, cmax = _fin.finalize_chunked(
+        ts, tc, bs, bc, mag_title, mag_body, pagerank, query_len, topic_probs,
+        hot=hot, phrase=pacc,
     )
-    return exact_top_k(final, topk, doc_map=doc_map)
+    return exact_top_k(final, topk, doc_map=doc_map, cmax=cmax)
 
 
 # ---------------------------------------------------------------------- #
@@ -435,17 +423,18 @@ def score_dense(
     posting_cap: int,
     n_docs: int,
     blend: tuple[float, float, float, float] | None = None,  # (w_pr, w_title, w_body, scale)
-) -> torch.Tensor:
-    """Dense final scores [B, n_docs] via the CSR formulation; folds the
-    sparse phrase matches before normalization. Doc-level arrays may be
-    padded beyond n_docs (sliced)."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense final scores [B, n_docs] via the CSR formulation, with their
+    chunk maxima (kernels/finalize.py finalize_chunked); folds the sparse
+    phrase matches before normalization. Doc-level arrays may be padded
+    beyond n_docs (sliced)."""
     ts, tc, bs, bc = csr_scores(
         title_offsets, title_doc_ids, title_weights,
         body_offsets, body_doc_ids, body_weights,
         term_ids, phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
         posting_cap=posting_cap, n_docs=n_docs,
     )
-    return finalize_scores(
+    return _fin.finalize_chunked(
         ts, tc, bs, bc, mag_title[:n_docs], mag_body[:n_docs], pagerank[:n_docs],
         query_len, topic_probs, REFERENCE_BLEND if blend is None else blend,
     )
@@ -470,7 +459,7 @@ def score_queries(
     was truncated (doc_term_cap): the CSR stays complete, so scores and
     candidacy remain exact for pathological documents. Under the doc-sorted
     layout pass n_docs = the padded doc count plus doc_map."""
-    final = score_dense(
+    final, cmax = score_dense(
         title_offsets, title_doc_ids, title_weights,
         body_offsets, body_doc_ids, body_weights,
         mag_title, mag_body, pagerank,
@@ -478,4 +467,4 @@ def score_queries(
         phrase_doc_ids, phrase_title_w, phrase_body_w, phrase_flag,
         posting_cap=posting_cap, n_docs=n_docs, blend=blend,
     )
-    return exact_top_k(final, topk, doc_map=doc_map)
+    return exact_top_k(final, topk, doc_map=doc_map, cmax=cmax)

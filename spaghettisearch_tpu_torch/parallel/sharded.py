@@ -33,12 +33,13 @@ import numpy as np
 import torch
 
 from ..index.snapshot import IndexSnapshot, SectionCSR
+from ..ops.kernels import finalize as _fin
 from ..ops.kernels import membership as _k1
 from ..ops.kernels import mixed as _k2
 from ..ops.kernels.mixed import POS_BIG, quantize_posT
 from ..ops.pagerank import _iterate
 from ..ops.phrase import match_phrase_batch, match_phrase_fwd_batch
-from ..ops.scoring import _top_k_lowest_index, exact_top_k, finalize_scores, hot_body_scores
+from ..ops.scoring import _top_k_lowest_index, exact_top_k, hot_body_scores
 from ..retrieval.device_index import (
     POS_T_BUDGET_BYTES,
     POS_T_INT16,
@@ -565,7 +566,7 @@ def _batch_axis(mesh: Mesh, axis: str, batch_axis: str | None) -> str | None:
 
 def _fold(b: int, dl: int, ph_row, ph_docs, ph_tw, ph_bw, ph_fl):
     """Scatter the compressed phrase rows' matches onto their batch rows ->
-    (title weight, body weight, match flag), each [b, dl]. Rows mapped to b
+    [b, dl, 3] (title weight, body weight, match flag). Rows mapped to b
     and docs at dl are pads and drop (the JAX package's scatter over a
     [b+1, dl+1] accumulator, whose mode="drop" also drops the CSR
     matcher's int32-max pad docs: here they go to the pad column)."""
@@ -573,22 +574,15 @@ def _fold(b: int, dl: int, ph_row, ph_docs, ph_tw, ph_bw, ph_fl):
     docs = torch.where((ph_docs >= 0) & (ph_docs < dl), ph_docs, dl)
     idx = ph_row.clamp(max=b).long()[:, None] * (dl + 1) + docs.long()
     acc.index_add_(0, idx.reshape(-1), torch.stack([ph_tw, ph_bw, ph_fl], dim=-1).reshape(-1, 3))
-    acc = acc.view(b + 1, dl + 1, 3)[:b, :dl]
-    return acc[:, :, 0], acc[:, :, 1], acc[:, :, 2]
+    return acc.view(b + 1, dl + 1, 3)[:b, :dl]
 
 
-def _hot_fold(shard: Shard, hot_sids, bs, bc, dl: int):
-    hot = hot_body_scores(shard.hot_body_w, hot_sids)[:, :dl]
-    bs = bs + hot
-    if bc is not None:  # true-count path: hot candidacy counts too
-        bc = bc + (hot > 0).to(bs.dtype)
-    return bs, bc
-
-
-def _local_top_k(final, k: int, shard: Shard, s: int, dl: int, doc_sorted: bool):
+def _local_top_k(final, k: int, shard: Shard, s: int, dl: int, doc_sorted: bool, cmax=None):
     """The shard's top-k with global ids: the doc-sorted layout maps back to
     local natural ids first, then the shard's id offset s * Dl."""
-    scores, ids = exact_top_k(final, min(k, dl), doc_map=shard.doc_perm if doc_sorted else None)
+    scores, ids = exact_top_k(
+        final, min(k, dl), doc_map=shard.doc_perm if doc_sorted else None, cmax=cmax
+    )
     return scores, ids + s * dl
 
 
@@ -692,32 +686,26 @@ def make_sharded_scorer(
             emit_counts=emit_counts, qnb=x["qnb"] if use_hot else None,
             body_tmax=bd.tmax_blocks if doc_sorted else None,
         )
-        if use_hot:
-            bs, bc = _hot_fold(shard, x["hot_sids"], bs, bc, dl)
-        d_fl = None
+        fold = None
         if has_phrase:  # keyword-only batches skip the scatter
             # phrase_rows are GLOBAL batch indices: this query row holds
             # [qi*b, (qi+1)*b); the rest drop
             local = x["ph_row"] - qi * b
             row = torch.where((local >= 0) & (local < b), local, b)
-            d_ts, d_bs, d_fl = _fold(b, dl, row, *ph)
-            ts = ts + d_ts
-            bs = bs + d_bs
-        if tc is None:  # counts elided: all weights > 0, candidacy by score
-            cand = ts + bs > 0
-            tc = (cand if d_fl is None else cand | (d_fl > 0)).to(ts.dtype)
-            bc = torch.zeros_like(tc)
-        elif d_fl is not None:
-            tc = tc + d_fl
-        if scoring == "bm25":
+            fold = _fold(b, dl, row, *ph)
+        if scoring == "bm25":  # true counts, no hot split
+            if fold is not None:
+                ts, bs, tc = ts + fold[:, :, 0], bs + fold[:, :, 1], tc + fold[:, :, 2]
             final = title_boost * ts + body_boost * bs
             final = torch.where(tc + bc > 0, final, torch.full_like(final, -float("inf")))
-        else:
-            final = finalize_scores(
-                ts, tc, bs, bc, shard.mag_title, shard.mag_body, shard.pagerank,
-                x["qlen"], x["topic_probs"],
-            )
-        return _local_top_k(final, k, shard, s, dl, doc_sorted)
+            return _local_top_k(final, k, shard, s, dl, doc_sorted)
+        # the hot fold's add, candidacy (after it), the phrase fold's add and finalize
+        final, cmax = _fin.finalize_chunked(
+            ts, tc, bs, bc, shard.mag_title, shard.mag_body, shard.pagerank,
+            x["qlen"], x["topic_probs"], phrase=fold,
+            hot=hot_body_scores(shard.hot_body_w, x["hot_sids"]) if use_hot else None,
+        )
+        return _local_top_k(final, k, shard, s, dl, doc_sorted, cmax)
 
     def run(sidx, term_ids, qlen, topic_probs, ph_ids, ph_valid, gen_idx,
             phrase_rows=None, qn=None, qnb=None, hot_sids=None):
@@ -787,21 +775,19 @@ def make_sharded_mixed_scorer(
 
     def block(shard: Shard, s: int, qi: int, x: dict):
         t, bd = shard.title, shard.body
-        # candidacy is derived AFTER the hot fold: a doc matched only by a
-        # hot body term must still become a candidate
+        # candidacy comes AFTER the hot fold (inside finalize): a doc matched
+        # only by a hot body term must still become a candidate
         ts, tc, bs, bc = _k2.mixed_scores_padded(
             t.fwd.ftT, t.fwd.fwT, bd.fwd.ftT, bd.fwd.fwT, t.posT, bd.posT,
             x["term_ids"], x["qn"], x["ph_ids"], x["ph_valid"], x["pn"],
             emit_counts=has_zero_w, qnb=x["qnb"] if use_hot else None, derive=False,
         )
-        if use_hot:
-            bs, bc = _hot_fold(shard, x["hot_sids"], bs, bc, bs.shape[1])
-        ts, tc, bs, bc = _k2.derive_mixed_counts(ts, tc, bs, bc)
-        final = finalize_scores(
+        final, cmax = _fin.finalize_chunked(
             ts, tc, bs, bc, shard.mag_title, shard.mag_body, shard.pagerank,
             x["qlen"], x["topic_probs"],
+            hot=hot_body_scores(shard.hot_body_w, x["hot_sids"]) if use_hot else None,
         )
-        return _local_top_k(final, k, shard, s, dl, doc_sorted)
+        return _local_top_k(final, k, shard, s, dl, doc_sorted, cmax)
 
     def run(sidx, term_ids, qlen, topic_probs, ph_ids, ph_valid, qn, pn,
             qnb=None, hot_sids=None):

@@ -2,7 +2,10 @@
 against its plain PyTorch version on the card, at small and at the main
 path's full widths (B=128, Q=4/32, P=16), all also on the batches that
 stress their probe tables (and each table build against its plain
-version), K5's top-k on ties across doc tiles and ragged row tiles, and the CUDA engine against the CPU engine on the reference
+version), K5's top-k on ties across doc tiles and ragged row tiles, the
+finalize kernel against its plain route bit for bit (also through the
+lanes, and one launch a batch in a traced run of each benchmark cell at a
+tiny size), and the CUDA engine against the CPU engine on the reference
 blend, BM25, a custom blend and the CSR route; the doc-sharded mesh with
 its shards on the card against the same mesh on the CPU; refresh on the
 card (appended docs, and the device memory an old index must give back);
@@ -28,7 +31,9 @@ from spaghettisearch_tpu_torch.corpus import bench_queries, write_corpus
 from spaghettisearch_tpu_torch.index.snapshot import build_snapshot
 from spaghettisearch_tpu_torch.models.blended import BlendedRanker
 from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+from spaghettisearch_tpu_torch.ops import scoring
 from spaghettisearch_tpu_torch.ops.kernels import check
+from spaghettisearch_tpu_torch.ops.kernels import finalize as fin
 from spaghettisearch_tpu_torch.ops.kernels import fused as k4
 from spaghettisearch_tpu_torch.ops.kernels import fused_topk as k5
 from spaghettisearch_tpu_torch.ops.kernels import membership as k1
@@ -312,6 +317,126 @@ def test_fused_kernel_keeps_inf_and_zero_weight_candidates(cuda, indexes):
     rep = check.compare_final(got, want)
     assert rep["ok"], rep
     assert torch.isfinite(got[0, d0]) and bool((got[0] == float("inf")).any())
+
+
+def _finalize_agrees(case: dict, exact: bool) -> torch.Tensor:
+    n0 = fin.LAUNCHES
+    got = check.run_finalize(case)
+    want = check.run_finalize(case, plain=True)
+    torch.cuda.synchronize()
+    assert fin.LAUNCHES == n0 + 1
+    rep = check.compare_finalize(got, want, exact=exact)
+    assert rep["ok"], rep
+    b, d = got[0].shape
+    m = got[1].shape[1]
+    pad = got[0].as_strided((b, m * fin.CHUNK - d), (m * fin.CHUNK, 1), d)
+    assert bool((pad == -float("inf")).all())
+    return got
+
+
+@pytest.mark.parametrize("c", [0, 1, 4])
+@pytest.mark.parametrize("weights", [None, (0.0, 1.0, 0.0, 1.0)], ids=["reference", "title_only"])
+@pytest.mark.parametrize("phrase", [False, True])
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("hot", [False, True])
+def test_finalize_kernel_matches_plain(cuda, hot, counts, phrase, weights, c):
+    """Every variant at B = 13, 80, 128 and D = 1000 (float4 rows, a ragged
+    last chunk), 1027 (scalar rows) and 4096: bit for bit with at most one
+    topic category, within RTOL where sqd sums four (cuBLAS's order)."""
+    for b in (13, 80, 128):
+        for d in (1000, 1027, 4096):
+            case = check.finalize_case(b, d, seed=b + d + c, hot=hot, counts=counts,
+                                       phrase=phrase, c=c, weights=weights, device=cuda)
+            _finalize_agrees(case, exact=c <= 1)
+
+
+@pytest.mark.parametrize("hot,counts,phrase", [(True, False, False), (True, True, False),
+                                               (False, False, True), (False, True, False)])
+@pytest.mark.parametrize("d", [1_250_000, 1_340_734])
+def test_finalize_kernel_at_full_width(cuda, d, hot, counts, phrase):
+    """The cells' widths at B=128 (1,340,734 is not a multiple of 4: the
+    scalar rows), bit for bit, and the top-50 started from its chunk
+    maxima equal to exact_top_k over the plain route's scores."""
+    case = check.finalize_case(128, d, seed=d, hot=hot, counts=counts, phrase=phrase, device=cuda)
+    final, cmax = _finalize_agrees(case, exact=True)
+    want = check.run_finalize(case, plain=True)[0].contiguous()
+    got = scoring.exact_top_k(final, 50, cmax=cmax)
+    ref = scoring.exact_top_k(want, 50)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    del case, final, cmax, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("doc_sort", [False, True])
+@pytest.mark.parametrize("lane", ["keyword", "keyword_counts", "mixed"])
+def test_lanes_top50_identical_with_plain_finalize(cuda, corpus, indexes, doc_sort, lane,
+                                                   monkeypatch):
+    """score_queries_forward and score_queries_mixed (through the
+    reference blend's model) on the card: the top-50 ids and scores with
+    the finalize kernel equal those with its plain route, exactly."""
+    idx = indexes[doc_sort]
+    model = BlendedRanker()
+    if lane == "mixed":
+        batch = check.to_device(check.mixed_batch(idx, 128, 4, 16, seed=5, df=_df(corpus[1]),
+                                                  snap=corpus[1]), cuda)
+    else:
+        batch = check.to_device(check.keyword_batch(idx, 128, 32, seed=6, df=_df(corpus[1])), cuda)
+    qlen = batch["qn"].clamp(min=1).to(torch.float32)
+    tp = torch.zeros((128, idx.n_categories), device=cuda)
+
+    def rank():
+        if lane == "mixed":
+            return model.score_mixed(idx, batch["term_ids"], qlen, tp, batch["ph_ids"],
+                                     batch["ph_valid"], topk=50, qn=batch["qn"], pn=batch["pn"],
+                                     qnb=batch["qnb"], hot_sids=batch["hot_sids"])
+        if lane == "keyword_counts":  # K1 emits its counts (an index with zero weights)
+            return scoring.score_queries_forward(
+                idx.title.fwd, idx.body.fwd, idx.mag_title, idx.mag_body, idx.pagerank,
+                batch["term_ids"], qlen, tp, batch["qn"], batch["qnb"], batch["hot_sids"],
+                idx.hot_body_w, idx.body.tmax_blocks, idx.doc_perm, topk=50, emit_counts=True)
+        return model.score_keywords(idx, batch["term_ids"], qlen, tp, topk=50, qn=batch["qn"],
+                                    qnb=batch["qnb"], hot_sids=batch["hot_sids"])
+
+    n0 = fin.LAUNCHES
+    got = rank()
+    assert fin.LAUNCHES == n0 + 1
+    monkeypatch.setattr(fin, "finalize_chunked", fin.plain_finalize_chunked)
+    want = rank()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(torch.isfinite(got[0]).any())
+
+
+@pytest.mark.parametrize("name,kernel", [("lucene-mixed", "mixed_kernel"),
+                                         ("nq-questions", "membership2_kernel")])
+def test_traced_cell_one_finalize_and_membership_launch_a_batch(cuda, name, kernel):
+    """A traced 1-second run of each benchmark cell at a tiny size: the
+    membership kernel's roofline reader pairs one launch with each batch,
+    the finalize kernel launches as often under its own base name, and
+    every batch took the kernel route (the TRACER counters)."""
+    from benchmark import devtrace, run, stages
+    from spaghettisearch_tpu_torch.utils.timing import TRACER
+
+    cell = run.load_cell(name)
+    cell["config_data"].update(n_docs=2500, vocab_size=20000, body_words=60)
+
+    def counts():
+        rep = TRACER.report()
+        return [rep.get(n, {}).get("count", 0) for n in
+                ("scoring.finalize.kernel", "scoring.finalize.plain", "engine.launch")]
+
+    n0 = counts()
+    result, checks, ev = stages.stage_run(cell, 41, 1.0, "cuda")
+    n1 = counts()
+    assert result["correct"], checks
+    # the reader is there only where its kernel's launches pair one to one
+    # with the batches of its lane
+    assert ("k2" if kernel == "mixed_kernel" else "k1") + ".roofline_pct" in result["metrics"]
+    launches = sum(devtrace.kernel(ev, k)[0] for k in ("mixed_kernel", "membership2_kernel"))
+    finalizes, _ = devtrace.kernel(ev, "finalize_kernel")
+    assert launches >= devtrace.kernel(ev, kernel)[0] > 0 and finalizes == launches
+    assert {devtrace.base_name(n) for n, _, _ in devtrace.in_window(ev) if "finalize" in n} == {
+        "finalize_kernel"}
+    assert n1[0] - n0[0] == n1[2] - n0[2] > 0 and n1[1] == n0[1]
 
 
 def test_wrappers_reject_bad_inputs(cuda, indexes):
