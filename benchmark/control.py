@@ -1,15 +1,17 @@
-"""The control of the comparison: the reference in bfloat16 in the port's
-place.
+"""The control of the comparison: the configuration's reference in
+bfloat16 in the port's place.
 
     python benchmark/control.py --workload <cell> --seeds 11,12,13 [--pool 150000]
 
 For each seed it draws the cell's shard and stream as a run does, takes the
 check's sample of the first `--pool` queries (the answers a window would
-hold), and compares the reference computed in bfloat16 (weights,
-magnitudes and sums: the nearest precision below the float32 the
-configuration states) with the float32 reference, by the same numbers and
-limits a run uses. The comparison is sound only if the control fails it;
-the smallest reading over the seeds is each number's upper reading.
+hold), and compares the configuration's reference (its `reference`, as
+a run builds it) computed in bfloat16 (weights, and magnitudes where it
+has them, and sums: the nearest precision below the float32 the
+configuration states) with the same reference in float32, by the same
+numbers and limits a run uses. The comparison is sound only if
+the control fails it; the smallest reading over the seeds is each
+number's upper reading.
 The benchmark's runs do not run this; it needs a CUDA card unless
 `--device cpu` is given (the CPU tests run it at a tiny size).
 """
@@ -31,7 +33,7 @@ def control_readings(cell: dict, seed: int, pool: int, device: str) -> dict:
     import torch
 
     from benchmark import collection, compare, reference, traffic
-    from benchmark.run import CHECK_QUERIES, TOPK, WARM_BLOCKS
+    from benchmark.run import CHECK_QUERIES, TOPK, WARM_BLOCKS, make_reference
 
     dev = torch.device(device)
     coll = collection.generate(cell["config_data"], seed, dev, snapshot=False,
@@ -40,11 +42,9 @@ def control_readings(cell: dict, seed: int, pool: int, device: str) -> dict:
                                 content_seed=cell["content_seed"], first=WARM_BLOCKS).texts
     rng = np.random.default_rng([int(seed), 0xC4])
     picks = np.sort(rng.choice(pool, size=min(CHECK_QUERIES, pool), replace=False))
-    words = coll.words()
-    stop = traffic.stopwords()
-    ref = reference.Reference(coll.title.tok, coll.body.tok, words, stop, dev)
-    low = reference.Reference(coll.title.tok, coll.body.tok, words, stop, dev,
-                              dtype=torch.bfloat16)
+    cfg = cell["config_data"]
+    ref = make_reference(cfg, coll, dev)
+    low = make_reference(cfg, coll, dev, dtype=torch.bfloat16)
     k = TOPK
     rows = []
     for q in picks.tolist():

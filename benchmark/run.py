@@ -5,24 +5,28 @@
 A cell (workloads/<cell>.json) names a configuration (configs/) and a
 traffic mix (traffic/). The run draws the configuration's shard and the
 mix's query stream from the seed, builds the port's QueryEngine on the
-card over the shard's snapshot, warms it with the stream's first block
-(WARM_BLOCKS), and then, for `--seconds`, drives it as the server's
+card over the shard's snapshot, warms it with the stream's first
+WARM_BLOCKS blocks, and then, for `--seconds`, drives it as the server's
 batcher does: the stream's texts in arrival order, BATCH at a time, each
 batch parsed (`parse_query`) and dispatched (`QueryEngine.rank_async`)
 before the batch ahead of it is fetched (`.finish()`), IN_FLIGHT batches
-on the way. The stream is drawn a part of a block at a time while the
-card works through the batches on the way, so it lasts as long as the
-window. No HTTP, batcher or hydration: the
-cell measures the engine.
+on the way. The window's stream is drawn by a child process
+(traffic.Feed) as the loop takes it, so it lasts as long as the window
+and the loop's host work is the port's alone. No HTTP, batcher or
+hydration: the cell measures the engine.
 
 After the window a sample of the answered queries, drawn from the seed,
-is held against the plain reference (reference.py) on the card, once the
+is held against the configuration's plain reference on the card, once the
 port's state is freed; `correct` is that comparison (compare.py) against
-the cell's limits. The last line of standard output is the result's JSON
-object: with `--trace 0` the end-to-end metrics, with `--trace 1` the
-per-layer ones (a torch.profiler trace of the window) and a breakdown.
+the cell's limits. A configuration names its reference by `reference`
+(module:Class of this package; reference.py's blend when absent).
+
+The last line of standard output is the result's JSON object: with
+`--trace 0` the end-to-end metrics, with `--trace 1` the per-layer ones
+(a torch.profiler trace of the window) and a breakdown.
 Every metric is a reader in metrics/, found by its file name; a reader
-that finds nothing to read returns None and is left out.
+that finds nothing to read returns None and is left out, and so is a
+metric that BENCHMARK.json lists for other cells only.
 
 The run refuses to start without a CUDA card (no fallback to the CPU).
 """
@@ -51,8 +55,13 @@ ROOT = os.path.dirname(HERE)
 BANNED = ("jax", "jaxlib", "flax", "spaghettisearch_tpu")
 #: rows a batch (the server's max_batch), batches in flight (the batcher's
 #: fetch stage), rows of each answer, warm-up blocks of the stream (one
-#: block is 1,024 queries: 8 batches), answers held against the reference
-BATCH, IN_FLIGHT, TOPK, WARM_BLOCKS, CHECK_QUERIES = 128, 2, 50, 1, 512
+#: block is 1,024 queries: 8 batches; 32 blocks, 2-3 s on the card, bring
+#: the parse's word cache and the card's clocks to where the window keeps
+#: them; a cell may ask for fewer by `warm_blocks`, as the tests' tiny
+#: cells do), answers held against the reference
+BATCH, IN_FLIGHT, TOPK, WARM_BLOCKS, CHECK_QUERIES = 128, 2, 50, 32, 512
+#: the reference of a configuration without a `reference` key
+DEFAULT_REFERENCE = "benchmark.reference:Reference"
 
 
 def _cache_dirs() -> None:
@@ -74,21 +83,63 @@ def load_cell(name: str) -> dict:
     cell["name"] = name
     cell["config_data"] = load_json("configs", cell["config"])
     cell["traffic_data"] = load_json("traffic", cell["traffic"])
+    reference_spec(cell["config_data"])
     return cell
+
+
+def reference_spec(cfg: dict) -> str:
+    """The configuration's `reference`, a module:Class spec. Only this
+    package supplies one: the program never brings its own yardstick."""
+    spec = cfg.get("reference", DEFAULT_REFERENCE)
+    mod, _, cls = spec.partition(":") if isinstance(spec, str) else ("", "", "")
+    if mod.split(".", 1)[0] != "benchmark" or not cls:
+        raise ValueError("configuration key 'reference' must name a class of the "
+                         f"benchmark package as module:Class, not {spec!r}")
+    return spec
+
+
+def _load(spec: str):
+    mod, _, cls = spec.partition(":")
+    return getattr(importlib.import_module(mod), cls)
+
+
+def make_reference(cfg: dict, coll, device, **kw):
+    """The configuration's plain reference over the shard's raw tokens;
+    `kw` adds the control's `dtype`."""
+    from benchmark import traffic
+
+    return _load(reference_spec(cfg))(
+        coll.title.tok, coll.body.tok, coll.words(), traffic.stopwords(), device, **kw)
+
+
+def reader(name: str):
+    """The metric reader metrics/<name>.py."""
+    path = os.path.join(HERE, "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_metric_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.NAME = name
+    return mod
 
 
 def readers() -> list:
     """Every metric reader in metrics/, by file name."""
-    out = []
-    for path in sorted(glob.glob(os.path.join(HERE, "metrics", "*.py"))):
-        name = os.path.basename(path)[:-3]
-        spec = importlib.util.spec_from_file_location(
-            "benchmark_metric_" + name.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mod.NAME = name
-        out.append(mod)
-    return out
+    return [reader(os.path.basename(p)[:-3])
+            for p in sorted(glob.glob(os.path.join(HERE, "metrics", "*.py")))]
+
+
+def elsewhere(cell_name: str) -> set[str]:
+    """Metrics that BENCHMARK.json, beside this folder, lists for other
+    cells only (by their `workloads`): a run of this cell leaves them out
+    of its line. Without the file, none."""
+    try:
+        with open(os.path.join(os.path.dirname(HERE), "BENCHMARK.json"), encoding="utf-8") as f:
+            spec = json.load(f)
+    except OSError:
+        return set()
+    return {m["name"] for m in spec["end_to_end"] + spec["per_layer"]
+            if cell_name not in m.get("workloads", [cell_name])}
 
 
 def banned_modules() -> list[str]:
@@ -172,8 +223,7 @@ def drive(eng, source, deadline=None, fault=None, traced=False, parse=None):
 
 
 def _ranker(spec: str):
-    mod, _, cls = spec.partition(":")
-    return getattr(importlib.import_module(mod), cls)()
+    return _load(spec)()
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda",
@@ -185,8 +235,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
     import numpy as np
     import torch
 
-    from benchmark import collection, compare, reference, traffic
-    from benchmark import devtrace
+    from benchmark import collection, compare, devtrace, traffic
     from spaghettisearch_tpu_torch.retrieval.device_index import DeviceIndex
     from spaghettisearch_tpu_torch.retrieval.engine import QueryEngine, parse_query
     from spaghettisearch_tpu_torch.store.tables import Database
@@ -202,6 +251,16 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
     steps["generate"] = clock() - t
     t = clock()
     flow = traffic.Traffic(mix, coll, seed, content_seed=cell["content_seed"])
+    warm = int(cell.get("warm_blocks", WARM_BLOCKS))
+    # the window's stream is drawn by a child process, so that the window's
+    # host loop carries the port's work alone. It is forked before the
+    # index, the engine and the warm-up, so that what the window writes
+    # was made after the fork, or first written in the warm-up, and costs
+    # no copy of a page the two processes share; the objects made so far
+    # are frozen, out of the collector's way
+    gc.collect()
+    gc.freeze()
+    source = traffic.Feed(flow, warm, window_blocks)
     steps["traffic"] = clock() - t
     if cuda:
         torch.cuda.synchronize(dev)
@@ -216,12 +275,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
     t = clock()
     eng = QueryEngine(db=Database(None), snapshot=coll.snapshot, index=index, device=dev,
                       model=_ranker(cfg["ranker"]))
-    drive(eng, traffic.Cursor(flow, 0, WARM_BLOCKS), parse=parse_query, fault=fault)
+    drive(eng, traffic.Cursor(flow, 0, warm), parse=parse_query, fault=fault)
     if cuda:
         torch.cuda.synchronize(dev)
     steps["engine_and_warmup"] = clock() - t
-    source = traffic.Cursor(flow, WARM_BLOCKS, window_blocks)
-    source.take(0, traffic.BLOCK)  # the window's first block, drawn in set-up
     print("setup seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()),
           file=sys.stderr)
     print("shard: " + json.dumps({
@@ -233,18 +290,22 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
     }), file=sys.stderr)
 
     prof = None
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
+    try:
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        prof = profile(activities=acts)
-        prof.start()
-    setup_s = time.perf_counter() - t0
-    start = time.perf_counter()
-    with (torch.profiler.record_function(devtrace.WINDOW) if trace
-          else contextlib.nullcontext()):
-        batches = drive(eng, source, deadline=start + seconds, fault=fault,
-                        traced=trace, parse=parse_query)
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            prof = profile(activities=acts)
+            prof.start()
+        setup_s = time.perf_counter() - t0
+        start = time.perf_counter()
+        with (torch.profiler.record_function(devtrace.WINDOW) if trace
+              else contextlib.nullcontext()):
+            batches = drive(eng, source, deadline=start + seconds, fault=fault,
+                            traced=trace, parse=parse_query)
+    finally:
+        source.close()
+        gc.unfreeze()
     window_s = batches[-1].t_done - start
     events = None
     if prof is not None:
@@ -252,6 +313,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
         events = devtrace.from_profiler(prof)
         del prof
     answered = sum(x.n for x in batches)
+    steps_ms = np.diff([x.t_take for x in batches]) * 1e3
+    if steps_ms.size:
+        print(f"window: {len(batches)} batches, loop step median {np.median(steps_ms):.2f} ms, "
+              f"longest {steps_ms.max():.2f} ms", file=sys.stderr)
     stream = source.stream
     texts = stream.texts
 
@@ -273,10 +338,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
     n_check = CHECK_QUERIES if n_check is None else n_check
     picks = np.sort(rng.choice(answered, size=min(n_check, answered), replace=False))
     rows = _answers(batches)
-    ref = reference.Reference(
-        coll.title.tok, coll.body.tok,
-        coll.words(), traffic.stopwords(), dev,
-    )
+    ref = make_reference(cfg, coll, dev)
     t = clock()
     readings = []
     for q in picks.tolist():
@@ -294,8 +356,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
               index_build_s=index_build_s, index_bytes=index_bytes, peak_bytes=peak,
               events=events)
     metrics = {}
+    skip = elsewhere(cell["name"])
     for r in readers():
-        if bool(getattr(r, "TRACE", True)) != bool(trace):
+        if bool(getattr(r, "TRACE", True)) != bool(trace) or r.NAME in skip:
             continue
         value = r.read(run)
         if value is not None:

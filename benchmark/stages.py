@@ -280,7 +280,9 @@ def stage_run(cell: dict, seed: int, seconds: float, device: str = "cuda",
     result["breakdown"]["device_stages"] = device_stages(ev)
     result["breakdown"]["stage_ops"] = stage_ops(ev)
     result["breakdown"]["program_gaps"] = program_gaps(ev)
-    ms = result["metrics"].get("device.ms_per_batch", {}).get("value")
+    # a host-paced cell reports the device's time per batch under its own name
+    m = result["metrics"]
+    ms = (m.get("device.ms_per_batch") or m.get("device.ms_per_batch.host_paced") or {}).get("value")
     result["stages"] = summary(ev, ms) if ms is not None else None
     return result, checks, ev
 

@@ -57,6 +57,15 @@ def test_benchmark_json_matches_the_files(spec):
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
     for m in spec["per_layer"]:
         assert m["moves"] in e2e and set(m["workloads"]) <= set(cells)
+    # each cell reports setup_s, another end-to-end metric, a per-layer one,
+    # and the end-to-end metric that each of its per-layer metrics moves
+    reported = {m["name"]: set(m.get("workloads", cells)) for m in spec["end_to_end"]}
+    for m in spec["per_layer"]:
+        assert set(m["workloads"]) <= reported[m["moves"]]
+    for name in cells:
+        own = {n for n, where in reported.items() if name in where}
+        assert "setup_s" in own and len(own) >= 2
+        assert any(name in m["workloads"] for m in spec["per_layer"])
     assert set(readers) == e2e | {m["name"] for m in spec["per_layer"]}
     # a full check of 24 cells fits its 43,200 s
     assert (2 + 14 * 24) * (spec["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
@@ -86,6 +95,24 @@ def test_result_line(spec, trace):
             assert len(result["breakdown"][key]) <= 10
     else:
         assert {"qps", "p95_ms", "setup_s"} <= set(result["metrics"])
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_line_leaves_out_the_metrics_of_other_cells(spec, trace):
+    """A cell's line holds the metrics BENCHMARK.json lists for it: the
+    host-paced cell reports neither qps nor p95_ms end to end, and its
+    traced line the host-paced readings in place of the others'."""
+    result, _ = run.run_cell(tiny_cell("nq-questions"), 53, 1.0, trace, "cpu")
+    kinds = "per_layer" if trace else "end_to_end"
+    own = {m["name"] for m in spec[kinds] if "nq-questions" in m.get("workloads", ["nq-questions"])}
+    _line_ok(result, own)
+    if trace:
+        # the host's readings (the card's find nothing to read on the CPU)
+        assert {"qps.host_paced", "p95_ms.host_paced", "engine.parse_ms.host_paced",
+                "engine.dispatch_ms.host_paced"} <= set(result["metrics"])
+        assert "engine.dispatch_ms" not in result["metrics"]
+    else:
+        assert set(result["metrics"]) == {"setup_s"}  # no peak on the CPU
 
 
 def test_refuses_without_a_card():
@@ -128,7 +155,7 @@ def test_a_cell_added_by_files_alone(tmp_path, monkeypatch):
         "classes": [{"name": "HighTerm", "share": 1, "keywords": ["High"]},
                     {"name": "OrHighMed", "share": 1, "keywords": ["High", "Med"]}]}))
     cell = json.load(open(copy / "workloads" / "lucene-mixed.json"))
-    cell.update(config="tiny-wiki", traffic="lucene-terms")
+    cell.update(config="tiny-wiki", traffic="lucene-terms", warm_blocks=1)
     (copy / "workloads" / "tiny-terms.json").write_text(json.dumps(cell))
     (copy / "metrics" / "window.batches.py").write_text(
         'UNIT = "batches"\nTRACE = False\n\n\ndef read(run):\n    return len(run.batches)\n')
@@ -140,6 +167,34 @@ def test_a_cell_added_by_files_alone(tmp_path, monkeypatch):
     assert result["metrics"]["window.batches"]["value"] >= 1
     assert result["metrics"]["window.batches"]["unit"] == "batches"
     assert "qps" in result["metrics"]
+
+
+def test_a_bm25_shard_added_by_files_alone(tmp_path, monkeypatch):
+    """A configuration that names BM25's ranker and its reference, and a
+    cell over it, each a new file: the harness loads the cell and builds
+    both from it, with no file of the harness edited."""
+    from benchmark import collection, reference_bm25
+    from spaghettisearch_tpu_torch.models.bm25 import BM25Ranker
+
+    copy = tmp_path / "benchmark"
+    shutil.copytree(BENCH, copy, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: open(p, "rb").read() for p in glob.glob(str(copy / "**" / "*"), recursive=True)
+              if os.path.isfile(p)}
+    cfg = json.load(open(copy / "configs" / "luceneutil-wikimedium10m.1of8.json"))
+    cfg.update(n_docs=500, vocab_size=5000, body_words=30,
+               ranker="spaghettisearch_tpu_torch.models.bm25:BM25Ranker",
+               reference="benchmark.reference_bm25:Reference")
+    (copy / "configs" / "tiny-wiki-bm25.json").write_text(json.dumps(cfg))
+    cell = json.load(open(copy / "workloads" / "lucene-mixed.json"))
+    cell.update(config="tiny-wiki-bm25")
+    (copy / "workloads" / "tiny-bm25.json").write_text(json.dumps(cell))
+    for p, data in before.items():
+        assert open(p, "rb").read() == data
+    monkeypatch.setattr(run, "HERE", str(copy))
+    cfg = run.load_cell("tiny-bm25")["config_data"]
+    assert type(run._ranker(cfg["ranker"])) is BM25Ranker
+    coll = collection.generate(cfg, 62, "cpu", snapshot=False)
+    assert type(run.make_reference(cfg, coll, "cpu")) is reference_bm25.Reference
 
 
 def _imports(path: str) -> set[str]:
@@ -159,7 +214,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, (path, mod)
     # the reference and the comparison import nothing of the port
-    for name in ("reference.py", "compare.py"):
+    for name in ("reference.py", "reference_bm25.py", "compare.py"):
         tops = {m.split(".")[0] for m in _imports(os.path.join(BENCH, name))}
         assert tops <= {"__future__", "re", "numpy", "torch", "benchmark"}, (name, tops)
 

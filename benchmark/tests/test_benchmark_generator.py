@@ -185,3 +185,32 @@ def test_cursor_draws_the_stream_part_by_part(shards, name):
     assert cur.stream.texts[:pos] == whole.texts
     assert all(np.array_equal(a, b) for a, b in zip(cur.stream.kw, whole.kw))
     assert np.array_equal(cur.stream.cls[:pos], whole.cls)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_feed_gives_the_stream_from_its_child(shards, name):
+    """The window's feed, drawn by a child process, gives the stream that
+    whole blocks give, texts and ranks alike; its child has ended once it
+    is closed, and a feed of a few blocks ends there."""
+    cell, coll = shards[name]
+    flow = traffic.Traffic(cell["traffic_data"], coll, 7, content_seed=cell["content_seed"])
+    feed = traffic.Feed(flow, 1)
+    pos = 0
+    for _ in range(30):
+        assert len(feed.take(pos, 128)) == 128
+        pos += 128
+        feed.prefetch(pos)
+    feed.close()
+    assert not feed._proc.is_alive() and feed._proc.exitcode == 0
+    whole = traffic.make_stream(cell["traffic_data"], coll, pos, 7,
+                                content_seed=cell["content_seed"], first=1)
+    got = feed.stream
+    assert got.texts[:pos] == whole.texts
+    assert all(np.array_equal(a, b) for a, b in zip(got.kw, whole.kw))
+    assert all(np.array_equal(a, b) for a, b in zip(got.ph, whole.ph))
+    assert np.array_equal(got.cls[:pos], whole.cls)
+    assert len(got.kw) == len(got.ph) == len(got.texts) == got.cls.size
+    short = traffic.Feed(flow, 1, 2)
+    assert len(short.take(0, 10 * traffic.BLOCK)) == 2 * traffic.BLOCK and short.ended
+    short.close()
+    assert short._proc.exitcode == 0

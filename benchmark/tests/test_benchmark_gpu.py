@@ -1,5 +1,6 @@
-"""On the card: both cells' whole run at a tiny size, correct against the
-reference (run with `python -m pytest benchmark/tests -m gpu`)."""
+"""On the card: both cells' whole run at a tiny size, and a BM25 shard's,
+correct against their references (run with `python -m pytest
+benchmark/tests -m gpu`)."""
 
 from __future__ import annotations
 
@@ -28,3 +29,13 @@ def test_cell_on_the_card(cuda, name, trace):
     assert result["device"]["platform"] == "gpu"
     if trace:
         assert result["device"]["busy_s"] > 0
+
+
+def test_bm25_cell_on_the_card(cuda):
+    """The port's BM25 on the card (K1 over its tiles, the sparse phrase
+    lane) against BM25's reference, through a whole tiny run."""
+    cell = tiny_cell("lucene-mixed")
+    cell["config_data"].update(ranker="spaghettisearch_tpu_torch.models.bm25:BM25Ranker",
+                               reference="benchmark.reference_bm25:Reference")
+    result, checks = run.run_cell(cell, 42, 1.0, False, cuda)
+    assert result["correct"], checks

@@ -14,19 +14,24 @@ such file against a generated collection. Class kinds:
   and otherwise a content word drawn in proportion to its body df, with at
   least one content word (natural-language questions).
 
-The stream is drawn a block of `BLOCK` queries at a time, one part of a
-block after each batch a run dispatches, so its length follows the window
-and no rate is guessed ahead. The content seed (fixed in the cell's file,
-like the shard's) and the block's index draw the block's queries, so every
-run of a cell asks the same set; the run's seed orders them within the
-block, and the shard's labels spell their words. Every query's keyword and phrase ranks are kept beside its
-text, so the harness's counts (the kernel bound) need no parse of their
-own.
+The stream is drawn a block of `BLOCK` queries at a time as a run takes
+it, so its length follows the window and no rate is guessed ahead: by a
+`Cursor` in the run's own process (one part of a block after each batch),
+or, in the measured window, by a `Feed`'s child process, which keeps the
+generator's work out of the window's host loop. The content seed (fixed
+in the cell's file, like the shard's) and the block's index draw the
+block's queries, so every run of a cell asks the same set; the run's seed
+orders them within the block, and the shard's labels spell their words.
+Every query's keyword and phrase ranks are kept beside its text, so the
+harness's counts (the kernel bound) need no parse of their own.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
+import pickle
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +43,9 @@ BLOCK = 1024
 #: a block is drawn in PARTS parts, one at a time, so that no step of the
 #: loop draws a whole block
 PARTS = 4
+#: blocks a Feed holds received ahead of the loop, and the seconds it
+#: waits for one before it gives up
+AHEAD, WAIT_S = 8, 60.0
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -275,6 +283,108 @@ class Cursor:
     def stream(self) -> Stream:
         cls = np.concatenate(self.cls) if self.cls else np.zeros(0, np.int16)
         return Stream(self.texts, cls, self.traffic.class_names, self.kw, self.ph)
+
+
+def _flat(arrays: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    lengths = np.array([a.size for a in arrays], np.int64)
+    flat = np.concatenate(arrays).astype(np.int64) if arrays else np.zeros(0, np.int64)
+    return flat, lengths
+
+
+def _produce(flow: Traffic, first: int, end: int | None, conn, reader) -> None:
+    """The child of a Feed: blocks from `first` on, each spelled and sent
+    whole (texts joined by newlines, ranks flat), until `end` or until the
+    Feed stops reading; an empty message ends the stream."""
+    reader.close()  # the copy of the Feed's end, so that its close ends the pipe
+    i = first
+    try:
+        while end is None or i < end:
+            b = flow.block(i)
+            texts = "\n".join(flow.text(w, q) for w, q in zip(b.words, b.quoted.tolist()))
+            conn.send_bytes(pickle.dumps((texts, b.cls, _flat(b.kw), _flat(b.ph)),
+                                         protocol=pickle.HIGHEST_PROTOCOL))
+            i += 1
+        conn.send_bytes(b"")
+    except OSError:  # the Feed closed its end
+        pass
+    finally:
+        conn.close()
+
+
+class Feed:
+    """The stream from block `first` on (at most `blocks` blocks), drawn
+    and spelled by a child process forked from this one, so that the
+    window's host loop carries none of the generator's work. The same
+    stream as a Cursor's, with its `take`, `prefetch` and `stream`. The
+    child only reads the shard's host arrays (it never touches the card)
+    and sends whole blocks; `prefetch` takes in at most one received block
+    a call, up to AHEAD blocks ahead. `close` ends the child and waits for
+    it."""
+
+    def __init__(self, flow: Traffic, first: int = 0, blocks: int | None = None):
+        end = None if blocks is None else int(first) + int(blocks)
+        ctx = multiprocessing.get_context("fork")
+        self._conn, child_end = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_produce, daemon=True,
+                                 args=(flow, int(first), end, child_end, self._conn))
+        with warnings.catch_warnings():
+            # the child reads host arrays and writes a pipe: no lock of the
+            # parent's other threads (CUDA's, the profiler's) is in its path
+            warnings.filterwarnings("ignore", "This process .* is multi-threaded",
+                                    DeprecationWarning)
+            self._proc.start()
+        child_end.close()
+        self.class_names = flow.class_names
+        self.texts: list[str] = []
+        self._parts: list[tuple] = []  # per block: cls, (kw flat, lengths), (ph flat, lengths)
+        self.ended = False
+        while len(self._parts) < AHEAD and self._receive():
+            pass
+
+    def _receive(self) -> bool:
+        """Take in one block (waiting for it); False once the stream ended."""
+        if self.ended:
+            return False
+        if not self._conn.poll(WAIT_S):
+            raise RuntimeError(f"the stream's child sent no block in {WAIT_S} s")
+        try:
+            data = self._conn.recv_bytes()
+        except EOFError:
+            data = b""
+        if not data:
+            self.ended = True
+            return False
+        texts, cls, kw, ph = pickle.loads(data)
+        self.texts += texts.split("\n")
+        self._parts.append((cls, kw, ph))
+        return True
+
+    def prefetch(self, pos: int) -> None:
+        if len(self.texts) < pos + AHEAD * BLOCK and not self.ended and self._conn.poll():
+            self._receive()
+
+    def take(self, pos: int, n: int) -> list[str]:
+        while len(self.texts) < pos + n and self._receive():
+            pass
+        return self.texts[pos: pos + n]
+
+    def close(self) -> None:
+        self._conn.close()
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+
+    @property
+    def stream(self) -> Stream:
+        def split(pairs):
+            return [a for flat, n in pairs for a in np.split(flat, np.cumsum(n)[:-1])]
+
+        cls = (np.concatenate([c for c, _, _ in self._parts]) if self._parts
+               else np.zeros(0, np.int16))
+        return Stream(self.texts, cls, self.class_names,
+                      split([k for _, k, _ in self._parts]),
+                      split([p for _, _, p in self._parts]))
 
 
 def make_stream(mix: dict, coll: Collection, n: int, seed: int,
